@@ -1,0 +1,152 @@
+"""Configuration: a JSON preset overlaid with run options.
+
+The preset ``presets/rna-r941.json`` is the JSON form of poreplex-tpu's
+``rna-r941.yaml`` (the same numeric knobs and HMM specifications); JSON
+because the port's runtime has no YAML parser. Options that belong to
+pipeline stages the port does not carry yet raise ``NotImplementedError``
+instead of being ignored.
+"""
+
+import copy
+import json
+import os
+
+from . import (OUTPUT_NAME_PASSED, OUTPUT_NAME_FAILED, OUTPUT_NAME_BARCODES,
+               OUTPUT_NAME_UNDETERMINED, OUTPUT_NAME_BARCODING_OFF)
+
+PRESETS_DIR = os.path.join(os.path.dirname(__file__), 'presets')
+
+
+def resolve_preset_path(name_or_path):
+    """A file path, a bundled preset name, or the default preset."""
+    if not name_or_path:
+        return os.path.join(PRESETS_DIR, 'rna-r941.json')
+    if os.path.isfile(name_or_path):
+        return name_or_path
+    candidate = os.path.join(PRESETS_DIR, name_or_path + '.json')
+    if os.path.isfile(candidate):
+        return candidate
+    raise FileNotFoundError(
+        'Cannot find a configuration in {}.'.format(name_or_path))
+
+
+def load_preset(name_or_path=''):
+    """Load a preset into a plain dict, resolving asset paths against the
+    bundled presets directory."""
+    with open(resolve_preset_path(name_or_path)) as f:
+        config = json.load(f)
+
+    kmer_models_dir = os.path.join(PRESETS_DIR, 'kmer_models')
+    if 'kmer_model' in config and not os.path.isabs(config['kmer_model']):
+        config['kmer_model'] = os.path.join(kmer_models_dir,
+                                            config['kmer_model'])
+    for section, key in (('signal_processing', 'scaler_model'),
+                         ('demultiplexing', 'demux_model')):
+        if section in config and key in config[section]:
+            val = config[section][key]
+            if not os.path.isabs(val):
+                config[section][key] = os.path.join(PRESETS_DIR, val)
+    return config
+
+
+def setup_output_name_mapping(config):
+    """(label, barcode) -> relative output path. Without barcoding every
+    label writes one stream keyed ``(label, None)``; with barcoding each
+    label fans out into one directory per barcode plus 'undetermined'."""
+    label_names = {'fail': OUTPUT_NAME_FAILED, 'pass': OUTPUT_NAME_PASSED}
+    if not config['barcoding']:
+        barcode_names = {None: OUTPUT_NAME_BARCODING_OFF}
+        layout = {(label, None): dirname
+                  for label, dirname in label_names.items()}
+        return label_names, barcode_names, layout
+
+    barcode_names = {None: OUTPUT_NAME_UNDETERMINED}
+    barcode_names.update(
+        (bc, OUTPUT_NAME_BARCODES.format(n=bc + 1))
+        for bc in range(config['demultiplexing']['number_of_barcodes']))
+    layout = {}
+    for label, dirname in label_names.items():
+        for bc, bcname in barcode_names.items():
+            layout[(label, bc)] = os.path.join(dirname, bcname)
+    return label_names, barcode_names, layout
+
+
+DEFAULT_OPTIONS = dict(
+    quiet=True,
+    barcoding=False,
+    barcoding_quality_filter=18,
+    batch_chunk_size=256,    # reads per analyzer batch
+    fastq_output=True,
+    trim_adapter=False,
+    minimum_sequence_length=10,
+    nobasecall_stop_trigger=1000,
+    device_batch_size=256,   # rows per stage-1 launch
+    wire_precision='exact',  # 'exact' u16 | 'fast' u8 per-read affine
+    device='cuda',           # 'cuda' | 'cuda:N' | 'cpu'
+    # stages of later slices of the port: must stay off
+    measure_polya=False,
+    filter_unsplit_reads=False,
+    albacore_onthefly=False,
+    live=False,
+    dashboard=False,
+    resume=False,
+    fast5_output=False,
+    nanopolish_output=False,
+    dump_adapter_signals=False,
+    dump_basecalls=False,
+    minimap2_index=None,
+    num_nodes=None,
+)
+
+# option -> the part of the port that will carry it
+LATER_SLICES = {
+    'measure_polya': 'the poly(A) slice',
+    'filter_unsplit_reads': 'the unsplit-read slice',
+    'albacore_onthefly': 'the albacore basecalling slice',
+    'live': 'the live-mode session slice',
+    'dashboard': 'the live-mode session slice',
+    'resume': 'the live-mode session slice',
+    'fast5_output': 'the FAST5 output slice',
+    'nanopolish_output': 'the nanopolish output slice',
+    'dump_adapter_signals': 'the dump-writer slice',
+    'dump_basecalls': 'the dump-writer slice',
+    'minimap2_index': 'the alignment slice',
+    'num_nodes': 'the multi-GPU slice',
+}
+
+
+def resolve_device(device):
+    """The torch device an entry point runs on. CUDA is the default and is
+    required unless the caller asked for the CPU; there is no fallback."""
+    import torch
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'CUDA is not available; pass device="cpu" to run the plain '
+            'PyTorch path on the CPU')
+    if device.type not in ('cuda', 'cpu'):
+        raise ValueError('unsupported device {}'.format(device))
+    return device
+
+
+def build_config(inputdir, outputdir, preset='', **options):
+    """Assemble the runtime config dict: preset, defaults, then options."""
+    config = load_preset(preset)
+    config.update(copy.deepcopy(DEFAULT_OPTIONS))
+    config['inputdir'] = inputdir
+    config['outputdir'] = outputdir
+    for key, value in options.items():
+        if key not in config:
+            raise KeyError('Unknown config option: {}'.format(key))
+        config[key] = value
+    for key, where in LATER_SLICES.items():
+        value = config[key]
+        if value and not (key == 'num_nodes' and value == 1):
+            raise NotImplementedError(
+                '{}={!r} is not ported yet; it waits for {}'.format(
+                    key, value, where))
+    config['device'] = str(resolve_device(config['device']))
+
+    (config['label_names'], config['barcode_names'],
+     config['output_layout']) = setup_output_name_mapping(config)
+    return config

@@ -1,0 +1,130 @@
+"""Build ``csrc/*.cu`` with nvcc at first use and load them with ctypes.
+
+Each source becomes one shared library with a plain C interface, compiled
+for ``sm_90a`` into ``build/poreplex_torch_kernels/`` beside the package,
+named by a hash of its source and flags so an edited source is rebuilt and
+an unchanged one is reused. No PyTorch headers are included, which keeps a
+build to seconds. Every C entry point returns ``cudaGetLastError()`` after
+its launch; ``check`` turns a non-zero code into an exception.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), 'build',
+                         'poreplex_torch_kernels')
+
+SOURCES = ('lstm.cu', 'viterbi.cu')
+FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+         '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+# the Viterbi's decisions are float comparisons held exactly against the
+# plain version: no multiply-add contraction there
+SOURCE_FLAGS = {'viterbi.cu': ['--fmad=false']}
+
+_lock = threading.Lock()
+_libraries = {}
+
+
+def nvcc_path():
+    candidates = [shutil.which('nvcc'),
+                  os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                               'bin', 'nvcc')]
+    for path in candidates:
+        if path and os.path.isfile(path):
+            return path
+    raise RuntimeError('nvcc not found: the CUDA kernels are built from '
+                       'source at first use and need the CUDA toolkit')
+
+
+def _command(source, output):
+    return ([nvcc_path()] + FLAGS + SOURCE_FLAGS.get(source, []) +
+            ['-o', output, os.path.join(CSRC_DIR, source)])
+
+
+def library_path(source):
+    with open(os.path.join(CSRC_DIR, source), 'rb') as f:
+        text = f.read()
+    flags = ' '.join(FLAGS + SOURCE_FLAGS.get(source, []))
+    key = hashlib.sha256(text + flags.encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, '{}-{}.so'.format(
+        os.path.splitext(source)[0], key))
+
+
+def compile_source(source):
+    """Compile one source unless its library exists; returns nvcc's
+    resource report (``-Xptxas -v``), or '' when the library was reused."""
+    target = library_path(source)
+    if os.path.exists(target):
+        return ''
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    partial = '{}.{}.tmp'.format(target, os.getpid())
+    proc = subprocess.run(_command(source, partial), capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError('nvcc failed on {}:\n{}{}'.format(
+            source, proc.stdout, proc.stderr))
+    os.replace(partial, target)
+    return proc.stdout + proc.stderr
+
+
+def build_all():
+    """Compile every source at once, one nvcc process each; returns
+    {source: nvcc report}."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        reports = list(pool.map(compile_source, SOURCES))
+    return dict(zip(SOURCES, reports))
+
+
+def library(source, signatures):
+    """The loaded library of ``source``, built first if needed, with
+    ``signatures`` = {function: argtypes} declared (restype int)."""
+    with _lock:
+        lib = _libraries.get(source)
+        if lib is None:
+            compile_source(source)
+            lib = ctypes.CDLL(library_path(source))
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libraries[source] = lib
+        return lib
+
+
+def check(code, name):
+    if code != 0:
+        raise RuntimeError('{} kernel launch failed: CUDA error {}'.format(
+            name, code))
+
+
+def ptr(tensor):
+    """The address of a tensor's data for a kernel launch. The wrapper may
+    drop the tensor before the kernel has run: PyTorch's caching allocator
+    reuses the memory only for work queued later on the same stream."""
+    return ctypes.c_void_p(tensor.data_ptr())
+
+
+def stream(device):
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_cuda(name, *tensors):
+    """The wrappers' input contract: float32 / int32 contiguous tensors on
+    one CUDA device."""
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device:
+            raise ValueError('{}: tensors on {} and {}'.format(
+                name, device, t.device))
+        if not t.is_contiguous():
+            raise ValueError('{}: non-contiguous input'.format(name))
+    if device.type != 'cuda':
+        raise ValueError('{}: no kernel for device {}'.format(name, device))

@@ -1,0 +1,124 @@
+"""Wrappers of the LSTM recurrence kernels (``csrc/lstm.cu``).
+
+Same signatures and results as the plain versions in ``ops/rnn.py``, which
+run for CPU tensors. For CUDA tensors the input projection of every step is
+one ``torch.matmul`` (hoisted out of the recurrence, as in the JAX
+package) and the recurrence is one kernel launch:
+
+  lstm2_stacked       scaler LSTM(48) -> LSTM(48), last h      [B, 48]
+  bidirectional_lstm  demux BiLSTM(48), whole sequence         [B, T, 96]
+  lstm_last           demux LSTM(64), last h                   [B, 64]
+"""
+
+import ctypes
+
+import torch
+
+from . import launches, _build
+from ..ops import rnn
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    'pp_lstm2_stacked': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    'pp_lstm_seq': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+STACKED_HIDDEN = (48,)
+SEQ_HIDDEN = (48, 64)
+
+
+def _lib():
+    return _build.library('lstm.cu', _SIGNATURES)
+
+
+def _check_layer(name, params, inputs, hidden_sizes):
+    rec = params['recurrent']
+    hidden = rec.shape[0]
+    if hidden not in hidden_sizes:
+        raise ValueError('{}: no kernel for hidden size {}'.format(
+            name, hidden))
+    if (tuple(rec.shape) != (hidden, 4 * hidden) or
+            tuple(params['kernel'].shape) != (inputs, 4 * hidden) or
+            tuple(params['bias'].shape) != (4 * hidden,)):
+        raise ValueError('{}: weight shapes do not match'.format(name))
+    for t in params.values():
+        if t.dtype != torch.float32:
+            raise ValueError('{}: weights must be float32'.format(name))
+    return hidden
+
+
+def _check_input(name, xs):
+    if xs.dim() != 3 or xs.dtype != torch.float32:
+        raise ValueError('{}: xs must be float32 [B, T, I]'.format(name))
+    if xs.shape[0] == 0 or xs.shape[1] == 0:
+        raise ValueError('{}: empty batch or sequence'.format(name))
+
+
+def lstm2_stacked(params1, params2, xs):
+    """Two stacked LSTM layers; layer 2's last h [B, H]."""
+    if xs.device.type == 'cpu':
+        return rnn.lstm2_stacked(params1, params2, xs)
+    _check_input('lstm2_stacked', xs)
+    h1 = _check_layer('lstm2_stacked', params1, xs.shape[2], STACKED_HIDDEN)
+    h2 = _check_layer('lstm2_stacked', params2, h1, STACKED_HIDDEN)
+    if h1 != h2:
+        raise ValueError('lstm2_stacked: layers of unequal width')
+    r1, k2, b2, r2 = (params1['recurrent'], params2['kernel'],
+                      params2['bias'], params2['recurrent'])
+    zx = rnn.project(params1, xs)
+    batch, seqlen, _ = zx.shape
+    out = torch.empty((batch, h2), dtype=torch.float32, device=xs.device)
+    _build.require_cuda('lstm2_stacked', zx, r1, k2, b2, r2, out)
+    code = _lib().pp_lstm2_stacked(
+        _build.ptr(zx), _build.ptr(r1), _build.ptr(k2), _build.ptr(b2),
+        _build.ptr(r2), _build.ptr(out), batch, seqlen, h1,
+        _build.stream(xs.device))
+    _build.check(code, 'lstm2_stacked')
+    launches['lstm2_stacked'] += 1
+    return out
+
+
+def bidirectional_lstm(fwd_params, bwd_params, xs):
+    """Keras Bidirectional(concat) LSTM: [B, T, 2H]."""
+    if xs.device.type == 'cpu':
+        return rnn.bidirectional_lstm(fwd_params, bwd_params, xs)
+    _check_input('bidirectional_lstm', xs)
+    hidden = _check_layer('bidirectional_lstm', fwd_params, xs.shape[2],
+                          SEQ_HIDDEN)
+    if _check_layer('bidirectional_lstm', bwd_params, xs.shape[2],
+                    SEQ_HIDDEN) != hidden:
+        raise ValueError('bidirectional_lstm: directions of unequal width')
+    zx_f = rnn.project(fwd_params, xs)
+    zx_b = rnn.project(bwd_params, xs)
+    batch, seqlen, _ = zx_f.shape
+    out = torch.empty((batch, seqlen, 2 * hidden), dtype=torch.float32,
+                      device=xs.device)
+    rec_f, rec_b = fwd_params['recurrent'], bwd_params['recurrent']
+    _build.require_cuda('bidirectional_lstm', zx_f, zx_b, rec_f, rec_b, out)
+    code = _lib().pp_lstm_seq(
+        _build.ptr(zx_f), _build.ptr(zx_b), _build.ptr(rec_f),
+        _build.ptr(rec_b), _build.ptr(out), None, batch, seqlen, hidden, 2,
+        _build.stream(xs.device))
+    _build.check(code, 'bidirectional_lstm')
+    launches['bidirectional_lstm'] += 1
+    return out
+
+
+def lstm_last(params, xs):
+    """One LSTM layer's last h [B, H] (return_sequences=False)."""
+    if xs.device.type == 'cpu':
+        return rnn.lstm(params, xs, return_sequences=False)
+    _check_input('lstm_last', xs)
+    hidden = _check_layer('lstm_last', params, xs.shape[2], SEQ_HIDDEN)
+    zx = rnn.project(params, xs)
+    batch, seqlen, _ = zx.shape
+    out = torch.empty((batch, hidden), dtype=torch.float32, device=xs.device)
+    rec = params['recurrent']
+    _build.require_cuda('lstm_last', zx, rec, out)
+    code = _lib().pp_lstm_seq(
+        _build.ptr(zx), _build.ptr(zx), _build.ptr(rec), _build.ptr(rec),
+        None, _build.ptr(out), batch, seqlen, hidden, 1,
+        _build.stream(xs.device))
+    _build.check(code, 'lstm_last')
+    launches['lstm_last'] += 1
+    return out

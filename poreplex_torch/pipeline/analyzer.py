@@ -1,0 +1,300 @@
+"""Per-batch analysis driver with upstream poreplex's per-read control flow
+and status lattice, run as batch phases:
+
+  A  host FAST5 load (metadata, raw signal pooled to pA frames, basecall)
+  B  device stage 1: scaler + QC + scaling + Viterbi extents + demux net
+  C  host: segments, gates, basecall events and adapter trimming
+  D  demux resolution from the stage-1 probabilities
+  E  report dicts
+
+A read can stop at any phase with a status from the taxonomy; later
+phases skip stopped reads.
+"""
+
+import csv
+import os
+import sys
+import traceback
+
+import numpy as np
+
+from .. import fast5
+from ..utils import pack_unhandled_exception, trace
+from .engine import DeviceEngine
+from .read import ReadRecord
+
+# basecall event columns stage C reads (an albacore Events read fetches
+# only these members)
+EVENT_COLUMNS = ('mean', 'start', 'move', 'p_model_state')
+
+
+class SignalAnalysisError(Exception):
+    pass
+
+
+def pool_signal(raw, stride, pa_scale, offset):
+    """Stride-mean pooling of a raw DAC signal into pA frames. The mean is
+    taken in DAC units and the affine pA = pa_scale * (dac + offset) is
+    applied to the pooled means only: the mean commutes with the affine,
+    so this is the pooled pA signal at 1/stride of the conversion work."""
+    trimmed = raw[:len(raw) - len(raw) % stride]
+    pooled = trimmed.reshape(-1, stride).mean(axis=1, dtype=np.float32)
+    return pooled * np.float32(pa_scale) + np.float32(pa_scale * offset)
+
+
+def read_kmer_size(path):
+    """k of the k-mer model table: the length of its first k-mer."""
+    with open(path, newline='') as f:
+        rows = csv.reader(f, delimiter='\t')
+        next(rows)                       # header
+        return len(next(rows)[0])
+
+
+class BatchAnalyzer:
+    """Models, engine and per-batch phases; reused across batches."""
+
+    def __init__(self, config):
+        self.config = config
+        self.inputdir = config['inputdir']
+        self.stride = config['signal_processing']['rough_signal_stride']
+        self.engine = DeviceEngine(config)
+        if self.engine.scaler.input_stride != self.stride:
+            # the scaler head is rebuilt on the device from the pooled
+            # body, so both must share one pooling
+            raise ValueError(
+                'scaler input stride ({}) must match rough_signal_stride '
+                '({})'.format(self.engine.scaler.input_stride, self.stride))
+        self.kmersize = read_kmer_size(config['kmer_model'])
+        if config['barcoding']:
+            self.demux_threshold = self.engine.demux.score_threshold(
+                config['barcoding_quality_filter'])
+
+    # ------------------------------------------------------------------
+    def load_batch(self, reads):
+        """PHASE A: reads is a list of (fast5_filename, read_id). Returns
+        the preloaded state for process_batch: (results of reads that
+        stopped here, records that go on)."""
+        results = []
+        records = []
+        readers = []
+        # the reads of one multi-read file share one open handle until
+        # the batch is loaded
+        pool = fast5.Fast5FilePool()
+        with trace('A:fast5_load'):
+            try:
+                for f5file, read_id in reads:
+                    if not os.path.exists(os.path.join(self.inputdir,
+                                                       f5file)):
+                        results.append({'filename': f5file,
+                                        'read_id': read_id,
+                                        'status': 'disappeared'})
+                        continue
+                    rec = ReadRecord(f5file, self.inputdir, read_id)
+                    try:
+                        with trace('A:open'):
+                            reader = fast5.Fast5Reader(rec.fullpath, read_id,
+                                                       pool=pool)
+                    except Exception:
+                        traceback.print_exc()
+                        rec.set_status('irregular_fast5', stop=True)
+                        results.append(rec.report())
+                        continue
+                    readers.append(reader)
+                    self.add_read(rec, reader, results, records)
+            finally:
+                for reader in readers:
+                    reader.close()
+        return results, records
+
+    def add_read(self, rec, reader, results, records):
+        """Load one read from an open reader (a Fast5Reader, or any object
+        with its metadata attributes, get_raw_dac and get_basecall) and
+        file the record under results (stopped) or records. The caller
+        closes the reader."""
+        try:
+            self._load_read(rec, reader)
+        except Exception as exc:
+            results.append(pack_unhandled_exception(
+                rec.filename, rec.read_id, exc, sys.exc_info()[2]))
+            return
+        if rec.is_stopped():
+            results.append(rec.report())
+        else:
+            records.append(rec)
+
+    def _load_read(self, rec, reader):
+        rec.sampling_rate = reader.sampling_rate
+        rec.duration = reader.duration
+        rec.channel = reader.channel_number
+        rec.start_time_s = round(reader.start_time / reader.sampling_rate, 3)
+        rec.run_id = reader.run_id
+        rec.sample_id = reader.sample_id
+
+        # minimum-signal gate of the scaler head
+        scaler = self.engine.scaler
+        sigload_length = min(scaler.input_length, reader.duration)
+        sigload_length -= sigload_length % scaler.input_stride
+        if sigload_length < scaler.min_length:
+            rec.set_status('scaler_signal_too_short', stop=True)
+            return
+
+        with trace('A:raw'):
+            raw = reader.get_raw_dac()
+        with trace('A:pool'):
+            rec.pooled = pool_signal(raw, self.stride, reader.pa_scale,
+                                     reader.offset)
+        rec.head_len = min(scaler.pooled_length, len(rec.pooled))
+
+        # a basecall read failure is raised in PHASE C, so stage-1
+        # statuses keep their precedence
+        try:
+            with trace('A:bcall'):
+                rec.bcall = reader.get_basecall(columns=EVENT_COLUMNS)
+        except Exception as exc:
+            rec.bcall_error = exc
+
+    # ------------------------------------------------------------------
+    def process_batch(self, reads, preloaded=None):
+        """reads: list of (fast5_filename, read_id), or None with
+        ``preloaded`` from load_batch. Returns the report dicts."""
+        if preloaded is None:
+            preloaded = self.load_batch(reads)
+        results, records = preloaded
+        if not records:
+            return results
+
+        # ---- PHASE B: device stage 1 ----
+        with trace('B:device_stage1'):
+            stage1 = self.run_stage1(records)
+
+        for i, rec in enumerate(records):
+            if not stage1['qc_ok'][i]:
+                rec.set_status('scaling_qc_fail', stop=True)
+                continue
+            rec.set_scaling_params(
+                np.asarray(stage1['scaling'][i], np.float32))
+            rec.segments = self.engine.segmodel.segments_dict(
+                stage1['first'][i], stage1['last'][i], stage1['present'][i])
+
+        # ---- PHASE C ----
+        failed = {}     # rec -> SignalAnalysisError status
+        demux_slots = {}
+        survivors = []
+        for i, rec in enumerate(records):
+            if rec.is_stopped():
+                continue
+            if 'adapter' not in rec.segments:
+                failed[rec] = 'adapter_not_detected'
+                continue
+            if self.config['barcoding'] and stage1['demux_ok'][i]:
+                demux_slots[rec] = stage1['demux_probs'][i]
+            survivors.append(rec)
+
+        with trace('C:events_trim'):
+            for rec in survivors:
+                try:
+                    events = self._load_events(rec)
+                    if self.config['trim_adapter']:
+                        self._trim_adapter(rec, events)
+                except SignalAnalysisError as exc:
+                    failed[rec] = exc.args[0]
+                except Exception as exc:
+                    err = pack_unhandled_exception(
+                        rec.filename, rec.read_id, exc, sys.exc_info()[2])
+                    rec.set_error(err['status'], err['error_message'])
+
+        # sequence length filter + labels
+        for rec in survivors:
+            if rec in failed or rec.error_message:
+                continue
+            if rec.sequence is not None:
+                readlength = len(rec.sequence[0]) - rec.sequence[2]
+                if readlength < self.config['minimum_sequence_length']:
+                    failed[rec] = 'sequence_too_short'
+
+        for rec, status in failed.items():
+            rec.set_status(status, stop=True)
+            rec.set_label('fail')
+        for rec in survivors:
+            if rec not in failed and not rec.error_message:
+                rec.set_label('pass')
+
+        # ---- PHASE D: demux resolution ----
+        if self.config['barcoding']:
+            demux = self.engine.demux
+            for rec, probs in demux_slots.items():
+                bcid = int(np.argmax(probs)) - demux.number_of_decoy_labels
+                score = float(np.max(probs))
+                effective = (bcid if bcid >= 0 and
+                             score >= self.demux_threshold else None)
+                rec.set_barcode(effective, bcid,
+                                demux.lookup_calibrated_phred_score(score))
+
+        # ---- PHASE E: reports ----
+        for rec in records:
+            results.append(rec.report())
+            rec.clear_cache()
+        return results
+
+    def run_stage1(self, records):
+        """Stage 1 of every record: all sub-batches are enqueued on the
+        device before the first result is read back."""
+        frames = self.engine.seg_frames
+        reads = [(rec.pooled, min(len(rec.pooled), frames), rec.head_len)
+                 for rec in records]
+        handles = []
+        counts = []
+        while reads:
+            with trace('B:pack'):
+                wire, n = self.engine.pack_stage1_flat(reads)
+            with trace('B:dispatch'):
+                handles.append(self.engine.dispatch_stage1_flat(wire))
+            counts.append(n)
+            reads = reads[n:]
+        with trace('B:collect'):
+            chunks = [self.engine.collect_stage1_flat(h) for h in handles]
+        return {k: np.concatenate([c[k][:cnt] for c, cnt in
+                                   zip(chunks, counts)])
+                for k in chunks[0]}
+
+    # ------------------------------------------------------------------
+    def _load_events(self, rec):
+        if rec.bcall_error is not None:
+            raise rec.bcall_error
+        bcall = rec.bcall
+        if bcall is None:
+            raise SignalAnalysisError('not_basecalled')
+        rec.sequence_length = bcall['sequence_length']
+        rec.mean_qscore = bcall['mean_qscore']
+        rec.num_events = bcall['num_events']
+        rec.sequence = (bcall['sequence'], bcall['qstring'], 0)
+        events = bcall['events']
+
+        scale, shift = rec.scaling_params
+        events['scaled_mean'] = events['mean'] * float(scale) + float(shift)
+        events['pos'] = np.cumsum(events['move'])
+        duration = np.hstack(
+            (np.diff(events['start']), [1])).astype(np.int64)
+        events['end'] = events['start'] + duration
+        rec.events = events
+        return events
+
+    def _trim_adapter(self, rec, events):
+        """Upstream poreplex returns early whenever a sequence exists,
+        which makes signal-guided trimming a no-op; ``fix_trim_adapter:
+        true`` in the preset enables the evidently intended trimming."""
+        sequence = rec.sequence
+        if sequence is None or not self.config.get('fix_trim_adapter'):
+            return
+
+        adapter_end = rec.segments['adapter'][1] * self.stride
+        kmer_lead_size = self.kmersize // 2
+        sel = events['start'] <= adapter_end
+        if sel.sum() <= 0:
+            return
+        adapter_basecall_length = int(events['move'][sel].sum()) + \
+            kmer_lead_size
+        if adapter_basecall_length > len(sequence[0]):
+            raise SignalAnalysisError('basecall_table_incomplete')
+        elif adapter_basecall_length > 0:
+            rec.set_adapter_trimming_length(adapter_basecall_length)

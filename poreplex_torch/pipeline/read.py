@@ -1,0 +1,103 @@
+"""Per-read record with upstream poreplex's status lattice and report
+format. Host-side state only; the signal math runs in the batched device
+stage."""
+
+import os
+
+
+class ReadRecord:
+
+    def __init__(self, filename, srcdir, read_id):
+        self.fullpath = os.path.join(srcdir, filename)
+        self.filename = filename
+        self.read_id = read_id
+        self.status = 'okay'
+        self.stopped = False
+        self.error_message = None
+
+        self.sampling_rate = None
+        self.duration = 0
+        self.channel = None
+        self.start_time_s = None
+        self.run_id = None
+        self.sample_id = None
+
+        self.scaling_params = None       # (scale, shift)
+        self.label = None
+        self.barcode = None
+        self.barcode_bestguess = None
+        self.barcode_quality = None
+        self.sequence = None             # (seq, qual, adapter_trim_len)
+        self.sequence_length = 0
+        self.mean_qscore = 0
+        self.num_events = 0
+
+        # transient analysis state (cleared after the batch)
+        self.pooled = None               # stride-pooled pA signal
+        self.head_len = 0                # scaler-head frames in pooled
+        self.segments = None             # {state: (first, last)} pooled frames
+        self.events = None               # EventTable of basecalled events
+        self.bcall = None                # basecall dict read at ingest
+        self.bcall_error = None          # deferred basecall read failure
+
+    # ---- status lattice ----
+    def set_status(self, newstatus, stop=False):
+        self.status = newstatus
+        self.stopped = self.stopped or stop
+
+    def set_error(self, status, error_message):
+        self.status = status
+        self.error_message = error_message
+
+    def is_stopped(self):
+        return self.stopped
+
+    def set_scaling_params(self, params):
+        self.scaling_params = params
+
+    def set_label(self, newlabel):
+        self.label = newlabel
+
+    def set_barcode(self, newbarcode, guess, quality):
+        self.barcode = newbarcode
+        self.barcode_bestguess = guess
+        self.barcode_quality = quality
+
+    def set_adapter_trimming_length(self, newlength):
+        if self.sequence is None:
+            raise Exception('Sequence is not set.')
+        self.sequence = self.sequence[:2] + (newlength,)
+
+    def clear_cache(self):
+        self.pooled = None
+        self.events = None
+        self.bcall = None
+
+    def report(self):
+        """Result dict in upstream poreplex's format."""
+        rep = {'filename': self.filename, 'read_id': self.read_id,
+               'status': self.status}
+
+        if self.sampling_rate is not None:
+            rep.update({
+                'channel': self.channel,
+                'start_time': self.start_time_s,
+                'run_id': self.run_id,
+                'sample_id': self.sample_id,
+                'duration': self.duration,
+                'num_events': self.num_events,
+                'sequence_length': self.sequence_length,
+                'mean_qscore': self.mean_qscore,
+            })
+
+        if self.sequence is not None:
+            rep['sequence'] = self.sequence
+        if self.error_message:
+            rep['error_message'] = self.error_message
+        if self.label is not None:
+            rep['label'] = self.label
+        if self.barcode is not None:
+            rep['barcode'] = self.barcode
+            rep['barcode_guess'] = self.barcode_bestguess
+            rep['barcode_score'] = self.barcode_quality
+        return rep

@@ -1,0 +1,237 @@
+"""Synthetic nanopore direct-RNA reads.
+
+A read's signal follows the segmentation HMM's state sequence (pre-leader
+-> leader -> adapter -> poly(A) -> transcript) and carries an albacore-style
+basecall of its transcript region. Reads are served from memory through
+``MemoryRead`` (the reader surface the analyzer loads from) or written as
+FAST5 files (h5py imported only there). Random numbers come only from the
+``numpy.random.Generator`` the caller passes.
+"""
+
+import os
+import uuid
+
+import numpy as np
+
+from .fast5 import EventTable
+
+DIGITISATION = 8192.0
+RANGE = 1169.0
+OFFSET = 3.0
+SAMPLING_RATE = 3012.0
+
+STATE_LEVELS = {
+    'pre-leader': (71.5, 3.66),
+    'leader-low': (102.07, 3.91),
+    'leader-high': (112.02, 4.80),
+    'adapter': (80.49, 7.41),
+    'polya-tail': (108.95, 2.55),
+    'transcript': (96.0, 11.0),
+}
+
+# per-barcode low-frequency signature on the adapter, in cycles per pooled
+# frame (stride 15), and its amplitude in pA
+BARCODE_FREQS = [0.011, 0.023, 0.037, 0.053]
+BARCODE_AMPS = [6.0, 5.0, 4.5, 5.5]
+
+BASES = 'ACGT'
+
+# albacore Events table layout (14 columns)
+EVENT_DTYPE = [('mean', '<f8'), ('start', '<u8'), ('stdv', '<f8'),
+               ('length', '<u8'), ('model_state', 'S5'), ('move', '<i8'),
+               ('p_model_state', '<f8')] + [
+    (c, '<f8') for c in ('weights', 'p_A', 'p_C', 'p_G', 'p_U', 'raw_index',
+                         'prev_state')]
+MEAN_QSCORE = 9.5
+BLOCK_STRIDE = 10
+
+
+class SimulatedRead:
+
+    def __init__(self, read_id, run_id, raw_dac, segments, sequence,
+                 qstring, events, channel='101', sample_id='simulated',
+                 start_time=0):
+        self.read_id = read_id
+        self.raw_dac = raw_dac
+        self.segments = segments          # {state: (start_sample, end_sample)}
+        self.sequence = sequence
+        self.qstring = qstring
+        self.events = events              # albacore Events table (structured)
+        self.channel = channel
+        self.run_id = run_id
+        self.sample_id = sample_id
+        self.start_time = start_time
+
+    @property
+    def duration(self):
+        return len(self.raw_dac)
+
+
+def _to_dac(pa):
+    dac = pa / (RANGE / DIGITISATION) - OFFSET
+    return np.clip(np.round(dac), -32768, 32767).astype(np.int16)
+
+
+def simulate_read(rng, transcript_len=9000, polya_len=2500, adapter_len=5500,
+                  preleader_len=700, leader_len=900, seq_per_event=0.35,
+                  noise=1.0, barcode=None):
+    """One synthetic read from ``rng`` (a numpy.random.Generator).
+    Durations are in raw samples; ``barcode`` (0..3) modulates the adapter
+    with that barcode's signature."""
+    read_id = str(uuid.UUID(bytes=rng.bytes(16), version=4))
+    run_id = uuid.UUID(bytes=rng.bytes(16), version=4).hex
+    parts = []
+    segments = {}
+    layout = [
+        ('pre-leader', preleader_len),
+        ('leader-low', leader_len * 2 // 3),
+        ('leader-high', leader_len - leader_len * 2 // 3),
+        ('adapter', adapter_len),
+        ('polya-tail', polya_len),
+        ('transcript', transcript_len),
+    ]
+    pos = 0
+    for state, dur in layout:
+        mu, sd = STATE_LEVELS[state]
+        seg = rng.normal(mu, sd * noise, dur)
+        if state == 'adapter' and barcode is not None:
+            t = np.arange(dur) / 15.0
+            seg += BARCODE_AMPS[barcode] * np.sin(
+                2 * np.pi * BARCODE_FREQS[barcode] * t +
+                rng.uniform(0, 2 * np.pi))
+        if state == 'transcript':
+            # the transcript wanders between k-mer levels
+            nlevels = max(2, -(-transcript_len // 35))
+            levels = rng.normal(mu, sd, nlevels)
+            seg = np.repeat(levels, 35)[:dur] + rng.normal(0, 2.0, dur)
+        seg_start = pos
+        pos += len(seg)
+        if state.startswith('leader'):
+            segments.setdefault('leader', [seg_start, pos - 1])
+            segments['leader'][1] = pos - 1
+        else:
+            segments[state] = (seg_start, pos - 1)
+        parts.append(seg)
+    signal_pa = np.concatenate(parts).astype(np.float32)
+
+    # basecalled sequence and events over the transcript region
+    tr_start, tr_end = segments['transcript']
+    n_events = max(8, int((tr_end - tr_start + 1) / 35))
+    moves = (rng.uniform(size=n_events) < seq_per_event).astype(np.uint8)
+    moves[0] = 1
+    seqlen = int(moves.sum()) + 4     # 5-mer model: k - 1 extra bases
+    sequence = ''.join(rng.choice(list(BASES), seqlen))
+    qstring = ''.join(chr(33 + q) for q in rng.integers(4, 30, seqlen))
+
+    ev_starts = np.linspace(tr_start, tr_end - 35, n_events).astype(np.int64)
+    ev_lengths = np.diff(np.append(ev_starts, tr_end)).astype(np.int64)
+    pos_idx = np.cumsum(moves) - 1
+    events = np.zeros(n_events, dtype=EVENT_DTYPE)
+    events['model_state'] = [
+        sequence[min(p, seqlen - 5):min(p, seqlen - 5) + 5].encode()
+        for p in pos_idx]
+    events['mean'] = [signal_pa[s:s + max(l, 1)].mean()
+                      for s, l in zip(ev_starts, ev_lengths)]
+    events['stdv'] = [signal_pa[s:s + max(l, 1)].std()
+                      for s, l in zip(ev_starts, ev_lengths)]
+    events['start'] = ev_starts
+    events['length'] = ev_lengths
+    events['move'] = moves
+    events['p_model_state'] = rng.uniform(0.2, 0.95, n_events)
+
+    return SimulatedRead(read_id, run_id, _to_dac(signal_pa), segments,
+                         sequence, qstring, events)
+
+
+class MemoryRead:
+    """A simulated read behind the reader surface the analyzer loads from
+    (the attributes and methods of fast5.Fast5Reader that it uses)."""
+
+    def __init__(self, read):
+        self.read = read
+        self.read_id = read.read_id
+        self.duration = read.duration
+        self.start_time = read.start_time
+        self.channel_number = read.channel
+        self.sampling_rate = SAMPLING_RATE
+        self.run_id = read.run_id
+        self.sample_id = read.sample_id
+        self.offset = OFFSET
+        self.pa_scale = RANGE / DIGITISATION
+
+    def get_raw_dac(self):
+        return self.read.raw_dac
+
+    def get_basecall(self, columns=None):
+        read = self.read
+        names = columns or read.events.dtype.names
+        return {
+            'sequence': read.sequence,
+            'qstring': read.qstring,
+            'block_stride': BLOCK_STRIDE,
+            'sequence_length': len(read.sequence),
+            'mean_qscore': MEAN_QSCORE,
+            'num_events': len(read.events),
+            'first_sample_template': int(read.segments['transcript'][0]),
+            'events': EventTable({n: read.events[n].copy() for n in names}),
+        }
+
+    def close(self):
+        pass
+
+
+# ---------------------------------------------------------------- FAST5
+
+def _write_basecall(parent, read):
+    """Analyses/{Basecall_1D_000,Segmentation_000} with an albacore
+    Events table."""
+    analyses = parent.require_group('Analyses')
+    bc = analyses.require_group('Basecall_1D_000')
+    seg = analyses.require_group('Segmentation_000')
+    bc.create_dataset('BaseCalled_template/Events', data=read.events)
+    fastq = '@{}\n{}\n+\n{}\n'.format(read.read_id, read.sequence,
+                                      read.qstring)
+    bc.create_dataset('BaseCalled_template/Fastq', data=np.bytes_(fastq))
+    summ = bc.require_group('Summary/basecall_1d_template')
+    summ.attrs['sequence_length'] = len(read.sequence)
+    summ.attrs['mean_qscore'] = MEAN_QSCORE
+    summ.attrs['block_stride'] = BLOCK_STRIDE
+    segsum = seg.require_group('Summary/segmentation')
+    segsum.attrs['num_events_template'] = len(read.events)
+    segsum.attrs['first_sample_template'] = int(
+        read.segments['transcript'][0])
+
+
+def write_single_read_fast5(path, read):
+    """Single-read layout: UniqueGlobalKey + Raw/Reads/Read_N."""
+    import h5py
+    with h5py.File(path, 'w') as f5:
+        raw = f5.create_group('Raw/Reads/Read_1001')
+        raw.attrs['read_id'] = np.bytes_(read.read_id)
+        raw.attrs['duration'] = read.duration
+        raw.attrs['start_time'] = read.start_time
+        raw.create_dataset('Signal', data=read.raw_dac)
+        ch = f5.require_group('UniqueGlobalKey/channel_id')
+        ch.attrs['channel_number'] = np.bytes_(read.channel)
+        ch.attrs['digitisation'] = DIGITISATION
+        ch.attrs['offset'] = OFFSET
+        ch.attrs['range'] = RANGE
+        ch.attrs['sampling_rate'] = SAMPLING_RATE
+        tr = f5.require_group('UniqueGlobalKey/tracking_id')
+        tr.attrs['run_id'] = np.bytes_(read.run_id)
+        tr.attrs['sample_id'] = np.bytes_(read.sample_id)
+        _write_basecall(f5, read)
+
+
+def make_fixture_dir(outdir, n_reads=8, seed=0, **simkw):
+    """A directory of single-read FAST5 files; returns (filename, read_id)
+    entries."""
+    os.makedirs(outdir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    entries = []
+    for i in range(n_reads):
+        read = simulate_read(rng, **simkw)
+        fname = 'read{:03d}.fast5'.format(i)
+        write_single_read_fast5(os.path.join(outdir, fname), read)
+        entries.append((fname, read.read_id))
+    return entries

@@ -1,0 +1,145 @@
+"""poreplex_torch stands alone: it imports neither jax nor any module of
+poreplex_tpu, its kernel wrappers never fall back to the plain version on a
+device that is not the CPU, and asking for CUDA where there is none
+raises."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PACKAGE = REPO / 'poreplex_torch'
+FORBIDDEN = ('jax', 'jaxlib', 'poreplex_tpu')
+
+
+def port_modules():
+    for path in sorted(PACKAGE.rglob('*.py')):
+        rel = path.relative_to(REPO).with_suffix('')
+        parts = rel.parts[:-1] if rel.name == '__init__' else rel.parts
+        yield '.'.join(parts)
+
+
+def port_sources():
+    return sorted(PACKAGE.rglob('*.py')) + [REPO / 'chip_smoke.py']
+
+
+def test_importing_every_module_loads_no_jax():
+    code = ('import importlib, sys\n'
+            'for name in sys.argv[1:]:\n'
+            '    importlib.import_module(name)\n'
+            'bad = sorted(m for m in sys.modules if m.split(".")[0] in {!r})\n'
+            'print(" ".join(bad))\n').format(FORBIDDEN)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, '-c', code] + list(port_modules()),
+                         capture_output=True, text=True, cwd=str(REPO),
+                         env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ''
+
+
+def test_sources_import_no_jax():
+    """No import statement of the port or chip_smoke.py, at any level of
+    the code, names jax or poreplex_tpu."""
+    for path in port_sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split('.')[0] not in FORBIDDEN, (path, name)
+
+
+def test_no_exception_handling_around_kernel_launches():
+    """The wrappers and their callers on the stage-1 path hold no try
+    statement, so a kernel failure can never turn into a silent fallback."""
+    paths = (sorted((PACKAGE / 'kernels').glob('*.py')) +
+             sorted((PACKAGE / 'models').glob('*.py')) +
+             [PACKAGE / 'pipeline' / 'engine.py'])
+    for path in paths:
+        for node in ast.walk(ast.parse(path.read_text())):
+            assert not isinstance(node, ast.Try), path
+
+
+def test_cuda_without_cuda_raises(tmp_path):
+    from poreplex_torch.config import build_config
+    from poreplex_torch.models.demux import DemuxModel
+    from poreplex_torch.models.scaler import ScalerModel
+    from poreplex_torch.models.segmentation import SegmentationHMM
+    from poreplex_torch.pipeline.engine import DeviceEngine
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        build_config(str(tmp_path), str(tmp_path))
+    config = build_config(str(tmp_path), str(tmp_path), device='cpu')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        DeviceEngine(config, device='cuda')
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        SegmentationHMM(config['segmentation_model'])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        ScalerModel(config['signal_processing']['scaler_model'])
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        DemuxModel(config['demultiplexing']['demux_model'])
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is not on the CPU never takes the plain path: here a
+    'meta' tensor, which no kernel takes, raises."""
+    from poreplex_torch.kernels import lstm as klstm, viterbi as kvit
+    meta = dict(device='meta', dtype=torch.float32)
+    p = {'kernel': torch.empty(1, 192, **meta),
+         'recurrent': torch.empty(48, 192, **meta),
+         'bias': torch.empty(192, **meta)}
+    p2 = {'kernel': torch.empty(48, 192, **meta),
+          'recurrent': torch.empty(48, 192, **meta),
+          'bias': torch.empty(192, **meta)}
+    xs = torch.empty(2, 5, 1, **meta)
+    with pytest.raises(ValueError, match='no kernel for device'):
+        klstm.lstm2_stacked(p, p2, xs)
+    with pytest.raises(ValueError, match='no kernel for device'):
+        klstm.bidirectional_lstm(p, p, xs)
+    with pytest.raises(ValueError, match='no kernel for device'):
+        klstm.lstm_last(p, xs)
+    x = torch.empty(2, 7, **meta)
+    hmm = [torch.empty(6, **meta), torch.empty(6, 6, **meta)] + \
+        [torch.empty(6, 2, **meta) for _ in range(3)]
+    with pytest.raises(ValueError, match='no kernel for device'):
+        kvit.viterbi_extents(x, torch.empty(2, dtype=torch.int32,
+                                            device='meta'), *hmm)
+
+
+@pytest.mark.parametrize('option,value', [
+    ('measure_polya', True), ('filter_unsplit_reads', True),
+    ('albacore_onthefly', True), ('live', True), ('fast5_output', True),
+    ('nanopolish_output', True), ('dump_adapter_signals', True),
+    ('dump_basecalls', True), ('minimap2_index', 'ref.mmi'),
+    ('num_nodes', 2)])
+def test_later_slice_options_raise(tmp_path, option, value):
+    from poreplex_torch.config import build_config
+    with pytest.raises(NotImplementedError, match='not ported yet'):
+        build_config(str(tmp_path), str(tmp_path), device='cpu',
+                     **{option: value})
+
+
+def test_tpu_knobs_are_unknown(tmp_path):
+    from poreplex_torch.config import build_config
+    for option in ('pallas', 'mesh_shape', 'prewarm'):
+        with pytest.raises(KeyError):
+            build_config(str(tmp_path), str(tmp_path), device='cpu',
+                         **{option: 'auto'})
+
+
+def test_kernel_build_targets_hopper():
+    from poreplex_torch.kernels import _build
+    assert 'arch=compute_90a,code=sm_90a' in _build.FLAGS
+    assert '--fmad=false' in _build.SOURCE_FLAGS['viterbi.cu']
+    for source in _build.SOURCES:
+        assert (PACKAGE / 'csrc' / source).is_file()
+        path = _build.library_path(source)
+        assert path.startswith(str(REPO / 'build' / 'poreplex_torch_kernels'))
