@@ -6,19 +6,28 @@
 1. builds the CUDA kernels from poreplex_torch/csrc/ (one nvcc per source,
    all at once) and prints the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes stage 1 gives it (B = 256 reads, scaler T = 2000, demux T = 300,
-   segmentation T = 6666): LSTM outputs within 5e-5 absolute, Viterbi
-   extents exactly equal and logp within 1e-5 relative; times the kernel,
-   the plain version and, where one PyTorch call computes the same
-   function, that call (torch.nn.LSTM with the converted weights);
-3. simulates 512 reads (basecalls included, transcripts of 9,000 to
-   90,000 raw samples) from a fixed seed and runs
-   them through BatchAnalyzer on the card with barcoding (quality filter
-   phred 7) and adapter trimming on, writes FASTQ and
-   sequencing_summary.txt, checks the
-   reports, and holds the first reads' stage-1 outputs against the same
-   engine on the CPU; every kernel must have been launched on this path;
-4. prints a JSON line of the kernels, then {"ok": true, ...} last.
+   shapes the main path gives it: stage 1 at B = 256 reads (scaler
+   T = 2000, demux T = 300, segmentation T = 6666), the poly(A) peak
+   detector at [256, 8192] and [8, 16384], the poly(A) DP at [512, 512]
+   and [512, 1024], the unsplit Viterbi at [1024, 1024] and [1024, 128].
+   LSTM outputs within 5e-5 absolute; Viterbi extents and paths, peak
+   emissions and DP intervals exactly equal; Viterbi logp within 1e-5
+   relative. Times the kernel, the plain version and, where one PyTorch
+   call computes the same function, that call (torch.nn.LSTM with the
+   converted weights);
+3. simulates 512 reads (basecalls included, poly(A) tails of 500 to
+   20,000 samples, transcripts of 9,000 to 90,000 raw samples, one in 16
+   made of two molecules) from a fixed seed and runs them through
+   BatchAnalyzer on the card with barcoding (quality filter phred 7),
+   adapter trimming, poly(A) measurement and the unsplit-read filter on,
+   writes FASTQ and sequencing_summary.txt, checks the reports, holds the
+   first reads' stage-1 outputs against the same engine on the CPU, and
+   the poly(A) tails and unsplit decisions of a few reads from each window
+   bucket the run used (at least two) against the same analyzer on the
+   CPU; every kernel must have been launched on this path;
+4. profiles one stage-1 batch and one whole 256-read batch;
+5. prints the run's time, a JSON line of the kernels, the card's name and
+   power limit, then {"ok": true, ...} last.
 
 Any failure raises and exits non-zero before the last line is printed.
 """
@@ -53,6 +62,22 @@ PEAK_BYTES = 3.35e12
 # gate math per hidden unit and step: three sigmoids, two expm1 tanhs and
 # the cell update, counted as elementwise operations
 GATE_OPS = 28
+# per valid frame of one read: the two detectors' compares, selects and
+# subtractions (about 20 each), and per column of one DP row the prefix,
+# budget, packed minimum and argmax updates (about 25 int32 operations)
+PEAK_FRAME_OPS = 40
+DP_COLUMN_OPS = 25
+# reads of each poly(A) window bucket held against the CPU on the main path
+CPU_PER_BUCKET = 3
+# one read in 16 is two molecules (a second leader and adapter 40% into
+# the transcript, as tests/test_pipeline_e2e.py makes them), the fourth of
+# each 16; the CPU check holds the first
+TWO_MOLECULES_EVERY = 16
+TWO_MOLECULES = dict(extra_adapter_at=0.4, seq_per_event=0.8)
+# poly(A) tails drawn uniformly from 500 to 20,000 samples (0.17 to 6.6 s
+# at 3,012 Hz), so the windows fall in the 8,192, 16,384 and 32,768-sample
+# buckets of pipeline/polya.py
+POLYA_SAMPLES = (500, 20001)
 
 
 def log(*args):
@@ -79,6 +104,23 @@ def time_ms(fn, reps, warmup=1):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def two_molecules(i):
+    return i % TWO_MOLECULES_EVERY == 3
+
+
+def timed(fn):
+    """(fn(), its device time in ms) of one call: the plain versions'
+    loops take seconds at the main path's shapes."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def bound(flops, nbytes):
@@ -170,7 +212,7 @@ def check_lstms(engine, rng):
             library_ms = time_ms(lambda: net(xs), reps=5)
         rows.append(dict(
             name=name, route='cuda', source='poreplex_torch/csrc/lstm.cu',
-            replaces=replaces, max_abs_err=err,
+            replaces=replaces, shape=list(xs.shape[:2]), max_abs_err=err,
             ms=time_ms(kernel, reps=5), plain_ms=time_ms(plain, reps=2),
             library_ms=library_ms, flops=flops, nbytes=nbytes,
             library_err=lib_err))
@@ -196,6 +238,15 @@ def viterbi_inputs(rng, T):
     return x, lengths.astype(np.int32)
 
 
+def viterbi_frame_ops(model):
+    """Per valid frame and read: emission (5 ops per component, then the
+    shift, exps, sum and log per state) and the transition max with its
+    first-occurrence compare and the score update."""
+    nstates, ncomp = model.mus.shape
+    return (nstates * ncomp * 5 + nstates * (4 + 3 * ncomp) +
+            3 * nstates * nstates + nstates)
+
+
 def check_viterbi(engine, rng):
     from poreplex_torch.kernels import viterbi as kvit
     from poreplex_torch.ops import viterbi as vit_ops
@@ -218,40 +269,161 @@ def check_viterbi(engine, rng):
     if not rel <= LOGP_RTOL:
         raise AssertionError('viterbi_extents: logp rel err {} > {}'.format(
             rel, LOGP_RTOL))
-    nstates, ncomp = m.mus.shape
-    # per valid frame and read: emission (5 ops per component, then the
-    # shift, exps, sum and log per state) and the transition max with its
-    # first-occurrence compare and the score update
-    per_frame = (nstates * ncomp * 5 + nstates * (4 + 3 * ncomp) +
-                 3 * nstates * nstates + nstates)
     frames = int(lens.sum())
     return [dict(
         name='viterbi_extents', route='cuda',
         source='poreplex_torch/csrc/viterbi.cu',
         replaces='poreplex_tpu/ops/pallas_viterbi.py:232',
-        max_abs_err=float(logp_err.max()), ms=time_ms(kernel, reps=5),
+        shape=list(xs.shape), max_abs_err=float(logp_err.max()),
+        ms=time_ms(kernel, reps=5),
         plain_ms=time_ms(plain, reps=1), library_ms=None,
-        flops=frames * per_frame,
+        flops=frames * viterbi_frame_ops(m),
         nbytes=x.numel() * 4 + lengths.numel() * 4 +
-        BATCH * nstates * (8 + 8 + 1) + BATCH * 4)]
+        BATCH * m.nstates * (8 + 8 + 1) + BATCH * 4)]
+
+
+def polya_windows(rng, rows, T):
+    """Poly(A) windows as the main path cuts them, in scaled pA: the
+    adapter's end, a tail over about 40% of the window, then transcript,
+    with lengths from T/4 to T."""
+    from poreplex_torch.simulate import STATE_LEVELS
+    x = np.zeros((rows, T), np.float32)
+    lengths = rng.integers(T // 4, T + 1, rows)
+    for i, L in enumerate(lengths):
+        tail = int(L * 0.4)
+        rest = L - 200 - tail
+        mu, sd = STATE_LEVELS['transcript']
+        x[i, :L] = np.concatenate([
+            rng.normal(*STATE_LEVELS['adapter'], 200),
+            rng.normal(*STATE_LEVELS['polya-tail'], tail),
+            np.repeat(rng.normal(mu, sd, rest // 35 + 1), 35)[:rest] +
+            rng.normal(0, 2.0, rest)])
+    return x, lengths.astype(np.int32)
+
+
+def exact_row(name, source, replaces, shape, got, ref, kernel, plain_ms,
+              flops, nbytes):
+    """A kernel row whose outputs must equal the plain version's."""
+    for a, b in zip(got, ref):
+        bad = int((a != b).sum())
+        if bad:
+            raise AssertionError('{} at {}: {} entries differ from the '
+                                 'plain version'.format(name, shape, bad))
+    return dict(name=name, route='cuda', source=source, replaces=replaces,
+                shape=shape, max_abs_err=0.0, ms=time_ms(kernel, reps=5),
+                plain_ms=plain_ms, library_ms=None, flops=flops,
+                nbytes=nbytes)
+
+
+def check_peaks(rng, polya_config):
+    """The dual peak detector on t-statistics of poly(A) windows."""
+    from poreplex_torch.kernels import event_detection as ked
+    from poreplex_torch.ops import event_detection as ed
+    p = polya_config['event_detection']
+    args = (float(p['threshold1']), float(p['threshold2']),
+            p['window_length1'], p['window_length2'], float(p['peak_height']))
+    rows = []
+    for B, T in ((BATCH, 8192), (8, 16384)):
+        xs, lens = polya_windows(rng, B, T)
+        x = torch.as_tensor(xs, device=DEVICE)
+        lengths = torch.as_tensor(lens, device=DEVICE)
+        _, cs, css = ed._centered_cumsums(x, lengths)
+        t1 = ed.compute_tstat(cs, css, lengths, p['window_length1'])
+        t2 = ed.compute_tstat(cs, css, lengths, p['window_length2'])
+        kernel = lambda: ked.detect_peaks(t1, t2, lengths, *args)
+        got = kernel()
+        ref, plain_ms = timed(lambda: ed.detect_peaks(t1, t2, lengths,
+                                                      *args))
+        rows.append(exact_row(
+            'detect_peaks', 'poreplex_torch/csrc/event_detection.cu',
+            'poreplex_tpu/ops/pallas_event_detection.py:137', [B, T], got,
+            ref, kernel, plain_ms,
+            flops=int(lens.sum()) * PEAK_FRAME_OPS,
+            # the two t-statistics over the valid frames, both emission
+            # streams over every frame, the lengths
+            nbytes=2 * 4 * int(lens.sum()) + 2 * 4 * B * T + 4 * B))
+    return rows
+
+
+def check_dp(rng):
+    """The interval DP on A and B packs stacked, as a round launches it."""
+    from poreplex_torch.kernels import polya_dp as kdp
+    from poreplex_torch.ops import polya_dp as dp_ops
+    rows = []
+    for N, K in ((2 * BATCH, 512), (2 * BATCH, 1024)):
+        isp = torch.as_tensor(rng.uniform(size=(N, K)) < 0.6, device=DEVICE)
+        ln = torch.as_tensor(rng.integers(1, 300, (N, K)).astype(np.float32),
+                             device=DEVICE)
+        counts = rng.integers(K // 8, K + 1, N).astype(np.int32)
+        n = torch.as_tensor(counts, device=DEVICE)
+        kernel = lambda: kdp.dp(isp, ln, n, 1.5, 110)
+        got = kernel()
+        ref, plain_ms = timed(lambda: dp_ops.dp_core(isp, ln, n, 1.5, 110))
+        rows.append(exact_row(
+            'polya_dp', 'poreplex_torch/csrc/polya_dp.cu',
+            'poreplex_tpu/ops/pallas_polya_dp.py:114', [N, K], got, ref,
+            kernel, plain_ms, flops=int(counts.sum()) * DP_COLUMN_OPS,
+            # is_polya and length over each row's events, the counts, the
+            # three outputs
+            nbytes=5 * int(counts.sum()) + 4 * N + 3 * 4 * N))
+    return rows
+
+
+def check_unsplit_viterbi(engine, rng):
+    """The full-path Viterbi of the unsplit HMM on event-mean windows."""
+    from poreplex_torch.kernels import viterbi as kvit
+    from poreplex_torch.ops import viterbi as vit_ops
+    from poreplex_torch.simulate import STATE_LEVELS
+    m = engine.unsplitmodel
+    means = [mu for mu, _ in STATE_LEVELS.values()]
+    rows = []
+    for R, T in ((1024, 1024), (1024, 128)):
+        lens = rng.integers(T // 2, T + 1, R).astype(np.int32)
+        levels = rng.choice(means, (R, T // 8 + 1))
+        xs = (np.repeat(levels, 8, axis=1)[:, :T] +
+              rng.normal(0, 3.0, (R, T))).astype(np.float32)
+        x = torch.as_tensor(xs, device=DEVICE)
+        lengths = torch.as_tensor(lens, device=DEVICE)
+        kernel = lambda: kvit.viterbi(x, lengths, *m.params())
+        got = kernel()
+        ref, plain_ms = timed(lambda: vit_ops.viterbi(x, lengths,
+                                                      *m.params()))
+        row = exact_row(
+            'viterbi', 'poreplex_torch/csrc/viterbi.cu',
+            'poreplex_tpu/ops/pallas_viterbi.py:292', [R, T], got[:1],
+            ref[:1], kernel, plain_ms,
+            flops=int(lens.sum()) * viterbi_frame_ops(m),
+            nbytes=R * T * 4 * 2 + R * 8)
+        logp_err = (got[1] - ref[1]).abs()
+        rel = float((logp_err / ref[1].abs().clamp(min=1.0)).max())
+        if not rel <= LOGP_RTOL:
+            raise AssertionError('viterbi: logp rel err {} > {}'.format(
+                rel, LOGP_RTOL))
+        row['max_abs_err'] = float(logp_err.max())
+        rows.append(row)
+    return rows
 
 
 def kernel_line(row):
-    return ('kernel {name}: max_err={max_abs_err:.3g} kernel_ms={ms:.4f} '
+    bound_ms, bound_by = bound(row['flops'], row['nbytes'])
+    return ('kernel {name} {shape}: max_err={max_abs_err:.3g} '
+            'kernel_ms={ms:.4f} bound_ms={bound:.5f} ({by}) '
             'plain_ms={plain_ms:.2f} library_ms={lib} (library vs kernel '
             'max err {lib_err})'.format(
                 lib=('{:.4f}'.format(row['library_ms'])
                      if row['library_ms'] is not None else 'none'),
                 lib_err=('{:.3g}'.format(row['library_err'])
                          if 'library_err' in row else 'none'),
-                **row))
+                bound=bound_ms, by=bound_by, **row))
 
 
 def run_main_path(config, rng):
     """512 simulated reads through BatchAnalyzer on the card, written with
     the port's writers. Launch counts and stage timers are reset just
     before the analyzer runs and read just after. Returns (results,
-    timings, launches, analyzer, every record's stage-1 input)."""
+    timings, launches, analyzer, every record's stage-1 input, the
+    simulated reads by id, the records and stage-1 outputs of the run,
+    the window bucket of each poly(A) round by read id)."""
     from poreplex_torch import kernels, simulate
     from poreplex_torch.io.writers import FASTQWriter, SequencingSummaryWriter
     from poreplex_torch.pipeline.analyzer import BatchAnalyzer
@@ -259,10 +431,13 @@ def run_main_path(config, rng):
     from poreplex_torch.utils import GLOBAL_TIMER
 
     analyzer = BatchAnalyzer(config)
-    # transcripts of about 200 to 2,000 nt (43 raw samples a base)
+    # transcripts of about 200 to 2,000 nt (43 raw samples a base); one
+    # read in TWO_MOLECULES_EVERY holds a second leader and adapter
     reads = [simulate.simulate_read(
         rng, transcript_len=int(rng.integers(*TRANSCRIPT_SAMPLES)),
-        barcode=i % 4) for i in range(N_READS)]
+        polya_len=int(rng.integers(*POLYA_SAMPLES)), barcode=i % 4,
+        **(TWO_MOLECULES if two_molecules(i) else {}))
+        for i in range(N_READS)]
     t0 = time.perf_counter()
     results, records = [], []
     for read in reads:
@@ -275,6 +450,24 @@ def run_main_path(config, rng):
     # one stage-1 batch first, so the timed run finds PyTorch's kernels
     # loaded; these launches are not counted
     analyzer.engine.run_stage1_flat(stage1_inputs[:BATCH])
+    # keep the run's stage-1 outputs, which the CPU check replays
+    stage1_run = {}
+    run_stage1 = analyzer.run_stage1
+
+    def keep_stage1(recs):
+        stage1_run['records'] = [rec.read_id for rec in recs]
+        stage1_run['outputs'] = run_stage1(recs)
+        return stage1_run['outputs']
+    analyzer.run_stage1 = keep_stage1
+    # and the bucket of every poly(A) round, which the CPU check samples
+    polya_blens = {}
+    launch = analyzer.polya_analyzer._launch
+
+    def keep_blens(chunk, blen):
+        for t in chunk:
+            polya_blens.setdefault(t.read.read_id, []).append(blen)
+        return launch(chunk, blen)
+    analyzer.polya_analyzer._launch = keep_blens
 
     GLOBAL_TIMER.totals.clear()
     GLOBAL_TIMER.counts.clear()
@@ -297,27 +490,33 @@ def run_main_path(config, rng):
     timings = {'ingest_s': ingest_s, 'process_s': t2 - t1,
                'stage1_s': GLOBAL_TIMER.totals['B:device_stage1'],
                'stages': GLOBAL_TIMER.snapshot()}
-    return results, timings, launches, analyzer, stage1_inputs
+    del analyzer.run_stage1
+    del analyzer.polya_analyzer._launch
+    return (results, timings, launches, analyzer, stage1_inputs,
+            {read.read_id: read for read in reads}, stage1_run, polya_blens)
 
 
-def profile_stage1(engine, reads):
-    """One stage-1 batch under torch.profiler: wall time, the device's
-    busy share (the union of the device's kernel and copy intervals over
-    the wall time) and the device time by kernel name."""
+def profile(label, fn):
+    """fn() under torch.profiler: wall time, the device's busy share (the
+    union of the device's kernel and copy intervals over the wall time)
+    and the device time by kernel name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run_stage1_flat(reads)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: the CPU operators' rows would count the
-    # same kernels twice, and the profiler's own buffer requests none
+    # device-side kernels and copies only: the CPU operators' rows would
+    # count the same kernels twice, the stage ranges (utils.trace) are
+    # projected onto the device timeline as annotations that span idle
+    # gaps, and the profiler's own buffer requests are none of the work
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA and
+                   not e.is_user_annotation and
                    not e.name.startswith('Activity Buffer'))
     busy_us, end = 0.0, float('-inf')
     by_name = {}
@@ -325,13 +524,30 @@ def profile_stage1(engine, reads):
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     busy_ms = busy_us / 1e3
-    log('stage-1 profile, {} reads: wall {:.2f} ms, device busy {:.2f} ms '
-        '({:.1%}) in {} device events; by name: {}'.format(
-            len(reads), wall_ms, busy_ms, busy_ms / wall_ms, len(spans),
+    log('{} profile: wall {:.2f} ms, device busy {:.2f} ms ({:.1%}) in {} '
+        'device events; by name: {}'.format(
+            label, wall_ms, busy_ms, busy_ms / wall_ms, len(spans),
             '; '.join('{} {:.3f} ms'.format(name[:60], us / 1e3)
                       for name, us in top)))
+
+
+def profile_batch(analyzer, reads):
+    """One 256-read batch through the whole analyzer (stage 1, poly(A),
+    unsplit filter), its stage timers beside the profile."""
+    from poreplex_torch import simulate
+    from poreplex_torch.pipeline.read import ReadRecord
+    from poreplex_torch.utils import GLOBAL_TIMER
+    stopped, records = [], []
+    for read in reads:
+        rec = ReadRecord('simulated.fast5', analyzer.inputdir, read.read_id)
+        analyzer.add_read(rec, simulate.MemoryRead(read), stopped, records)
+    GLOBAL_TIMER.totals.clear()
+    GLOBAL_TIMER.counts.clear()
+    profile('{}-read batch'.format(len(records)),
+            lambda: analyzer.process_batch(None, (stopped, records)))
+    log('profiled batch stage timers:', json.dumps(GLOBAL_TIMER.snapshot()))
 
 
 def check_outputs(config, results, outdir):
@@ -392,6 +608,137 @@ def check_against_cpu(config, analyzer, reads):
         'demux probabilities within {})'.format(n, LSTM_ATOL))
 
 
+def cpu_check_reads(stage1_run, polya_blens, reads):
+    """Positions in the run's records of the reads the CPU check replays:
+    the first CPU_PER_BUCKET reads of each poly(A) window bucket the run
+    used (a read counts in the widest bucket of its rounds), the first read
+    whose poly(A) took more than one round, and the first read of two
+    molecules."""
+    order = {read_id: i for i, read_id in enumerate(reads)}
+    picks, per_bucket = [], {}
+    multi = fused = False
+    for pos, read_id in enumerate(stage1_run['records']):
+        blens = polya_blens.get(read_id, [])
+        take = False
+        if blens and per_bucket.get(max(blens), 0) < CPU_PER_BUCKET:
+            per_bucket[max(blens)] = per_bucket.get(max(blens), 0) + 1
+            take = True
+        if len(blens) > 1 and not multi:
+            multi = take = True
+        if two_molecules(order[read_id]) and not fused:
+            fused = take = True
+        if take:
+            picks.append(pos)
+    return picks, per_bucket
+
+
+def check_polya_unsplit_against_cpu(config, results, reads, stage1_run,
+                                    polya_blens):
+    """Reads of the main path from each poly(A) window bucket through the
+    same analyzer on the CPU (plain versions of every kernel), given the
+    card's stage-1 outputs: each read's poly(A) begin, end and dwell, and
+    its status and label (the unsplit decision among them), must be
+    equal."""
+    from poreplex_torch import simulate
+    from poreplex_torch.pipeline.analyzer import BatchAnalyzer
+    from poreplex_torch.pipeline.read import ReadRecord
+    picks, per_bucket = cpu_check_reads(stage1_run, polya_blens, reads)
+    if len(per_bucket) < 2:
+        raise AssertionError('CPU check: the main path used poly(A) buckets '
+                             '{} only'.format(sorted(per_bucket)))
+    cpu = BatchAnalyzer(dict(config, device='cpu'))
+    ids = [stage1_run['records'][pos] for pos in picks]
+    cpu.run_stage1 = lambda recs: {k: v[picks] for k, v in
+                                   stage1_run['outputs'].items()}
+    stopped, records = [], []
+    for read_id in ids:
+        rec = ReadRecord('simulated.fast5', cpu.inputdir, read_id)
+        cpu.add_read(rec, simulate.MemoryRead(reads[read_id]), stopped,
+                     records)
+    if stopped or [rec.read_id for rec in records] != ids:
+        raise AssertionError('CPU check: reads did not load as on the card')
+    t0 = time.perf_counter()
+    got = {r['read_id']: r for r in cpu.process_batch(None, ([], records))}
+    cpu_s = time.perf_counter() - t0
+    card = {r['read_id']: r for r in results}
+    tails = unsplit = 0
+    for read_id in ids:
+        a, b = card[read_id], got[read_id]
+        for key in ('status', 'label'):
+            if a.get(key) != b.get(key):
+                raise AssertionError('read {}: {} {} on the card, {} on the '
+                                     'CPU'.format(read_id, key, a.get(key),
+                                                  b.get(key)))
+        pa, pb = a.get('polya'), b.get('polya')
+        if (pa is None) != (pb is None) or (pa is not None and any(
+                pa[k] != pb[k] for k in ('begin', 'end', 'dwell_time'))):
+            raise AssertionError('read {}: poly(A) {} on the card, {} on '
+                                 'the CPU'.format(read_id, pa, pb))
+        tails += pa is not None
+        unsplit += a['status'] == 'unsplit_read'
+    if not tails:
+        raise AssertionError('CPU check: no read with a poly(A) tail')
+    log('poly(A) and unsplit on cuda == cpu for {} reads (reads by widest '
+        'window bucket {}; {} tails, {} unsplit; begin, end, dwell, status '
+        'and label equal; {:.1f} s on the CPU)'.format(
+            len(ids), json.dumps({str(k): v for k, v in
+                                  sorted(per_bucket.items())}),
+            tails, unsplit, cpu_s))
+
+
+def polya_summary(results, timings, reads, polya_blens):
+    """Call rate and dwell against each read's simulated tail, and the
+    rounds the main path ran per window bucket."""
+    from poreplex_torch.simulate import SAMPLING_RATE
+    passed = [r for r in results if r.get('label') == 'pass']
+    dwell, truth = [], []
+    for r in passed:
+        if 'polya' in r:
+            begin, end = reads[r['read_id']].segments['polya-tail']
+            dwell.append(r['polya']['dwell_time'])
+            truth.append((end - begin + 1) / SAMPLING_RATE)
+    if not dwell:
+        raise AssertionError('no pass read has a poly(A) tail')
+    ratio = np.asarray(dwell) / np.asarray(truth)
+    log('poly(A): {} of {} pass reads have a tail ({:.1%}), median dwell '
+        '{:.4f} s against a median simulated tail of {:.4f} s ({} to {} '
+        'samples at {} Hz); dwell / simulated tail: median {:.4f}, 10th '
+        'and 90th percentiles {:.4f} and {:.4f}'.format(
+            len(dwell), len(passed), len(dwell) / len(passed),
+            float(np.median(dwell)), float(np.median(truth)),
+            POLYA_SAMPLES[0], POLYA_SAMPLES[1] - 1, int(SAMPLING_RATE),
+            float(np.median(ratio)), *np.percentile(ratio, [10, 90])))
+    windows, widest = {}, {}
+    for blens in polya_blens.values():
+        for blen in blens:
+            windows[blen] = windows.get(blen, 0) + 1
+        widest[max(blens)] = widest.get(max(blens), 0) + 1
+    rounds = [len(b) for b in polya_blens.values()]
+    log('poly(A) rounds: windows per bucket {}, reads by widest bucket {}, '
+        '{} of {} reads took more than one round (at most {})'.format(
+            json.dumps({str(k): v for k, v in sorted(windows.items())}),
+            json.dumps({str(k): v for k, v in sorted(widest.items())}),
+            sum(n > 1 for n in rounds), len(rounds), max(rounds)))
+    log('poly(A) and unsplit stage timers:', json.dumps(
+        {k: v for k, v in timings['stages'].items()
+         if k.startswith(('C:polya', 'C:unsplit'))}))
+
+
+def unsplit_summary(results, reads):
+    """The unsplit filter's decisions against the reads made of two
+    molecules: it must mark some of them and none of the others."""
+    fused = {read_id for i, read_id in enumerate(reads) if two_molecules(i)}
+    marked = {r['read_id'] for r in results if r['status'] == 'unsplit_read'}
+    if any(r.get('label') != 'artifact' for r in results
+           if r['read_id'] in marked):
+        raise AssertionError('an unsplit read is not labelled artifact')
+    log('unsplit filter: {} of {} two-molecule reads marked, {} of the '
+        'other {} reads'.format(len(marked & fused), len(fused),
+                                len(marked - fused), len(reads) - len(fused)))
+    if not marked & fused or marked - fused:
+        raise AssertionError('unsplit decisions do not follow the reads')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -417,18 +764,21 @@ def main():
         config = build_config(outdir, outdir, barcoding=True,
                               trim_adapter=True, device='cuda',
                               device_batch_size=BATCH,
-                              barcoding_quality_filter=BARCODE_PHRED)
+                              barcoding_quality_filter=BARCODE_PHRED,
+                              measure_polya=True, filter_unsplit_reads=True)
         rng = np.random.default_rng(SEED)
 
         engine = DeviceEngine(config)
         with torch.inference_mode():
-            rows = check_lstms(engine, rng) + check_viterbi(engine, rng)
+            rows = (check_lstms(engine, rng) + check_viterbi(engine, rng) +
+                    check_peaks(rng, config['polya_dwell']) + check_dp(rng) +
+                    check_unsplit_viterbi(engine, rng))
         del engine
         for row in rows:
             log(kernel_line(row))
 
-        results, timings, launches, analyzer, stage1_inputs = \
-            run_main_path(config, rng)
+        (results, timings, launches, analyzer, stage1_inputs, reads,
+         stage1_run, polya_blens) = run_main_path(config, rng)
         check_outputs(config, results, outdir)
         missing = [k for k, v in launches.items() if v == 0]
         if missing:
@@ -440,11 +790,22 @@ def main():
                 N_READS / (timings['ingest_s'] + timings['process_s']),
                 timings['ingest_s'], timings['process_s']))
         log('stage timers:', json.dumps(timings['stages']))
+        polya_summary(results, timings, reads, polya_blens)
+        unsplit_summary(results, reads)
         check_against_cpu(config, analyzer, stage1_inputs[:8])
-        profile_stage1(analyzer.engine, stage1_inputs[:BATCH])
+        check_polya_unsplit_against_cpu(config, results, reads, stage1_run,
+                                        polya_blens)
+        profile('stage-1, {} reads'.format(BATCH),
+                lambda: analyzer.engine.run_stage1_flat(
+                    stage1_inputs[:BATCH]))
+        profile_batch(analyzer, list(reads.values())[:BATCH])
 
     kernels_line = []
+    seen = set()
     for row in rows:
+        if row['name'] in seen:     # the main shape's row is the first
+            continue
+        seen.add(row['name'])
         bound_ms, bound_by = bound(row['flops'], row['nbytes'])
         kernels_line.append({
             'name': row['name'], 'route': row['route'],
@@ -453,6 +814,7 @@ def main():
             'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
             'plain_ms': row['plain_ms'], 'bound_ms': bound_ms,
             'bound_by': bound_by, 'library_ms': row['library_ms']})
+    log('chip_smoke took {:.1f} s'.format(time.perf_counter() - t0))
     print(json.dumps({'kernels': kernels_line}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -11,8 +11,9 @@ import copy
 import json
 import os
 
-from . import (OUTPUT_NAME_PASSED, OUTPUT_NAME_FAILED, OUTPUT_NAME_BARCODES,
-               OUTPUT_NAME_UNDETERMINED, OUTPUT_NAME_BARCODING_OFF)
+from . import (OUTPUT_NAME_PASSED, OUTPUT_NAME_FAILED, OUTPUT_NAME_ARTIFACT,
+               OUTPUT_NAME_BARCODES, OUTPUT_NAME_UNDETERMINED,
+               OUTPUT_NAME_BARCODING_OFF)
 
 PRESETS_DIR = os.path.join(os.path.dirname(__file__), 'presets')
 
@@ -52,8 +53,12 @@ def load_preset(name_or_path=''):
 def setup_output_name_mapping(config):
     """(label, barcode) -> relative output path. Without barcoding every
     label writes one stream keyed ``(label, None)``; with barcoding each
-    label fans out into one directory per barcode plus 'undetermined'."""
+    label fans out into one directory per barcode plus 'undetermined'.
+    The 'artifact' label exists when the unsplit-read filter can give
+    it."""
     label_names = {'fail': OUTPUT_NAME_FAILED, 'pass': OUTPUT_NAME_PASSED}
+    if config['filter_unsplit_reads']:
+        label_names['artifact'] = OUTPUT_NAME_ARTIFACT
     if not config['barcoding']:
         barcode_names = {None: OUTPUT_NAME_BARCODING_OFF}
         layout = {(label, None): dirname
@@ -83,9 +88,9 @@ DEFAULT_OPTIONS = dict(
     device_batch_size=256,   # rows per stage-1 launch
     wire_precision='exact',  # 'exact' u16 | 'fast' u8 per-read affine
     device='cuda',           # 'cuda' | 'cuda:N' | 'cpu'
-    # stages of later slices of the port: must stay off
     measure_polya=False,
     filter_unsplit_reads=False,
+    # stages of later slices of the port: must stay off
     albacore_onthefly=False,
     live=False,
     dashboard=False,
@@ -100,8 +105,6 @@ DEFAULT_OPTIONS = dict(
 
 # option -> the part of the port that will carry it
 LATER_SLICES = {
-    'measure_polya': 'the poly(A) slice',
-    'filter_unsplit_reads': 'the unsplit-read slice',
     'albacore_onthefly': 'the albacore basecalling slice',
     'live': 'the live-mode session slice',
     'dashboard': 'the live-mode session slice',

@@ -65,6 +65,9 @@ class SequencingSummaryWriter:
             self.output_fields.extend(['barcode', 'barcode_score'])
         else:
             self.barcode_mapping = None
+        self.polya_enabled = bool(config['measure_polya'])
+        if self.polya_enabled:
+            self.output_fields.append('polya_dwell')
         print(*self.output_fields, sep='\t', file=self.file)
 
     def close(self):
@@ -82,6 +85,10 @@ class SequencingSummaryWriter:
                         self.barcode_mapping[entry.get('barcode')]
                     output_entry['barcode_score'] = \
                         entry.get('barcode_score', 0)
+                if self.polya_enabled:
+                    output_entry['polya_dwell'] = (
+                        format(entry['polya']['dwell_time'], '.4f')
+                        if 'polya' in entry else '')
                 print(*[output_entry[f] for f in self.output_fields],
                       file=self.file, sep='\t')
 

@@ -11,6 +11,9 @@ launches = {
     'bidirectional_lstm': 0,
     'lstm_last': 0,
     'viterbi_extents': 0,
+    'viterbi': 0,
+    'detect_peaks': 0,
+    'polya_dp': 0,
 }
 
 

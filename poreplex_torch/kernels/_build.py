@@ -21,7 +21,7 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), 'build',
                          'poreplex_torch_kernels')
 
-SOURCES = ('lstm.cu', 'viterbi.cu')
+SOURCES = ('lstm.cu', 'viterbi.cu', 'event_detection.cu', 'polya_dp.cu')
 FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 # the Viterbi's decisions are float comparisons held exactly against the

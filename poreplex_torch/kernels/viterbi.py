@@ -1,9 +1,13 @@
-"""Wrapper of the segmentation Viterbi-with-extents kernel
-(``csrc/viterbi.cu``).
+"""Wrappers of the Viterbi kernels (``csrc/viterbi.cu``).
 
-Same signature and results as ``ops.viterbi.viterbi_extents``, which runs
-for CPU tensors: (first [B, S], last [B, S], present [B, S], logp [B]),
-extents of each state's last contiguous run, -1 where a state is absent.
+Same signatures and results as the plain versions in ``ops/viterbi.py``,
+which run for CPU tensors:
+
+  viterbi_extents  (first [B, S], last [B, S], present [B, S], logp [B]),
+                   extents of each state's last contiguous run, -1 where a
+                   state is absent (the segmentation HMM of stage 1)
+  viterbi          (path [B, T] int64, logp [B]), the decoded state of every
+                   frame (the unsplit-read HMM's windows)
 """
 
 import ctypes
@@ -17,6 +21,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     'pp_viterbi_extents': [_P] * 11 + [_I, _I, _I, _I, _P],
+    'pp_viterbi_path': [_P] * 10 + [_I, _I, _I, _I, _P],
 }
 STATES = (6,)
 COMPONENTS = (1, 2)
@@ -26,35 +31,42 @@ def _lib():
     return _build.library('viterbi.cu', _SIGNATURES)
 
 
+def _inputs(name, x, lengths, log_start, log_trans, mus, sigmas, logws):
+    """Checks the wrappers' inputs; returns the kernel's (x [T, B], int32
+    lengths, emission constants, backpointer scratch [T, B])."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError('{}: x must be float32 [B, T]'.format(name))
+    batch, seqlen = x.shape
+    nstates, ncomp = mus.shape
+    if nstates not in STATES or ncomp not in COMPONENTS:
+        raise ValueError('{}: no kernel for {} states x {} components'
+                         .format(name, nstates, ncomp))
+    if (tuple(log_start.shape) != (nstates,) or
+            tuple(log_trans.shape) != (nstates, nstates) or
+            tuple(sigmas.shape) != (nstates, ncomp) or
+            tuple(logws.shape) != (nstates, ncomp) or
+            tuple(lengths.shape) != (batch,)):
+        raise ValueError('{}: parameter shapes do not match'.format(name))
+    if batch == 0 or seqlen == 0:
+        raise ValueError('{}: empty batch or sequence'.format(name))
+    for t in (log_start, log_trans, mus, sigmas, logws):
+        if t.dtype != torch.float32:
+            raise ValueError('{}: parameters must be float32'.format(name))
+    return (x.t().contiguous(), lengths.to(torch.int32).contiguous(),
+            vit_ops.emission_const(sigmas, logws).contiguous(),
+            torch.empty((seqlen, batch), dtype=torch.int32, device=x.device))
+
+
 def viterbi_extents(x, lengths, log_start, log_trans, mus, sigmas, logws):
     """x [B, T] float32 padded observations, lengths [B]; HMM parameters as
     in ops.viterbi. Returns (first, last, present, logp)."""
     if x.device.type == 'cpu':
         return vit_ops.viterbi_extents(x, lengths, log_start, log_trans, mus,
                                        sigmas, logws)
-    if x.dim() != 2 or x.dtype != torch.float32:
-        raise ValueError('viterbi_extents: x must be float32 [B, T]')
+    xt, lens, const, bp = _inputs('viterbi_extents', x, lengths, log_start,
+                                 log_trans, mus, sigmas, logws)
     batch, seqlen = x.shape
     nstates, ncomp = mus.shape
-    if nstates not in STATES or ncomp not in COMPONENTS:
-        raise ValueError('viterbi_extents: no kernel for {} states x {} '
-                         'components'.format(nstates, ncomp))
-    if (tuple(log_start.shape) != (nstates,) or
-            tuple(log_trans.shape) != (nstates, nstates) or
-            tuple(sigmas.shape) != (nstates, ncomp) or
-            tuple(logws.shape) != (nstates, ncomp) or
-            tuple(lengths.shape) != (batch,)):
-        raise ValueError('viterbi_extents: parameter shapes do not match')
-    if batch == 0 or seqlen == 0:
-        raise ValueError('viterbi_extents: empty batch or sequence')
-    for t in (log_start, log_trans, mus, sigmas, logws):
-        if t.dtype != torch.float32:
-            raise ValueError('viterbi_extents: parameters must be float32')
-
-    xt = x.t().contiguous()                         # [T, B]: coalesced reads
-    lens = lengths.to(torch.int32).contiguous()
-    const = vit_ops.emission_const(sigmas, logws).contiguous()
-    bp = torch.empty((seqlen, batch), dtype=torch.int32, device=x.device)
     first = torch.empty((batch, nstates), dtype=torch.int32, device=x.device)
     last = torch.empty_like(first)
     logp = torch.empty((batch,), dtype=torch.float32, device=x.device)
@@ -69,3 +81,28 @@ def viterbi_extents(x, lengths, log_start, log_trans, mus, sigmas, logws):
     launches['viterbi_extents'] += 1
     first, last = first.to(torch.int64), last.to(torch.int64)
     return first, last, last >= 0, logp
+
+
+def viterbi(x, lengths, log_start, log_trans, mus, sigmas, logws):
+    """x [B, T] float32 padded observations, lengths [B]. Returns (path
+    [B, T] int64, logp [B]); path entries past a read's length repeat its
+    final decoded state."""
+    if x.device.type == 'cpu':
+        return vit_ops.viterbi(x, lengths, log_start, log_trans, mus, sigmas,
+                               logws)
+    xt, lens, const, bp = _inputs('viterbi', x, lengths, log_start, log_trans,
+                                 mus, sigmas, logws)
+    batch, seqlen = x.shape
+    nstates, ncomp = mus.shape
+    path = torch.empty((seqlen, batch), dtype=torch.int32, device=x.device)
+    logp = torch.empty((batch,), dtype=torch.float32, device=x.device)
+    _build.require_cuda('viterbi', xt, lens, log_start, log_trans, mus,
+                        sigmas, const, bp, path, logp)
+    p = _build.ptr
+    code = _lib().pp_viterbi_path(
+        p(xt), p(lens), p(log_start), p(log_trans), p(mus), p(sigmas),
+        p(const), p(bp), p(path), p(logp), batch, seqlen, nstates, ncomp,
+        _build.stream(x.device))
+    _build.check(code, 'viterbi')
+    launches['viterbi'] += 1
+    return path.t().to(torch.int64), logp

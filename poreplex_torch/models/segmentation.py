@@ -1,5 +1,6 @@
-"""The 6-state segmentation HMM, built from the preset's state list as
-dense log-domain arrays (``weights.hmm_arrays``)."""
+"""The 6-state HMMs of the preset (signal segmentation and unsplit-read
+detection), built from their state lists as dense log-domain arrays
+(``weights.hmm_arrays``)."""
 
 import numpy as np
 import torch
@@ -32,11 +33,15 @@ class SegmentationHMM(nn.Module):
         Viterbi-extents kernel: x [B, T] tensor, lengths [B]."""
         return vit_kernel.viterbi_extents(x, lengths, *self.params())
 
+    def path(self, x, lengths):
+        """Decoded states (path [B, T] int64, logp [B]) through the
+        full-path Viterbi kernel: x [B, T] tensor, lengths [B]."""
+        return vit_kernel.viterbi(x, lengths, *self.params())
+
     @torch.inference_mode()
     def decode(self, x, lengths):
         """Full path and extents with the plain ops, numpy in and out:
-        (path, logp, first, last, present). The full-path kernel belongs
-        to the unsplit-read slice."""
+        (path, logp, first, last, present)."""
         device = self.mus.device
         x = torch.as_tensor(np.asarray(x, np.float32), device=device)
         lengths = torch.as_tensor(np.asarray(lengths, np.int64),

@@ -3,12 +3,15 @@ and status lattice, run as batch phases:
 
   A  host FAST5 load (metadata, raw signal pooled to pA frames, basecall)
   B  device stage 1: scaler + QC + scaling + Viterbi extents + demux net
-  C  host: segments, gates, basecall events and adapter trimming
+  C  host: segments, gates, basecall events and adapter trimming; the
+     poly(A) rounds and the unsplit-read windows on the device
   D  demux resolution from the stage-1 probabilities
   E  report dicts
 
 A read can stop at any phase with a status from the taxonomy; later
-phases skip stopped reads.
+phases skip stopped reads. A kernel that fails to build or launch stops
+the batch: no per-read catch turns it into a missing poly(A) tail or an
+unfiltered read.
 """
 
 import csv
@@ -21,7 +24,9 @@ import numpy as np
 from .. import fast5
 from ..utils import pack_unhandled_exception, trace
 from .engine import DeviceEngine
+from .polya import PolyaAnalyzer
 from .read import ReadRecord
+from .unsplit import UnsplitReadDetector
 
 # basecall event columns stage C reads (an albacore Events read fetches
 # only these members)
@@ -65,6 +70,12 @@ class BatchAnalyzer:
                 'scaler input stride ({}) must match rough_signal_stride '
                 '({})'.format(self.engine.scaler.input_stride, self.stride))
         self.kmersize = read_kmer_size(config['kmer_model'])
+        self.polya_analyzer = (
+            PolyaAnalyzer(config['polya_dwell'], device=self.engine.device)
+            if config['measure_polya'] else None)
+        self.unsplit_detector = (
+            UnsplitReadDetector(config, self.engine.unsplitmodel)
+            if config['filter_unsplit_reads'] else None)
         if config['barcoding']:
             self.demux_threshold = self.engine.demux.score_threshold(
                 config['barcoding_quality_filter'])
@@ -143,6 +154,16 @@ class BatchAnalyzer:
         with trace('A:pool'):
             rec.pooled = pool_signal(raw, self.stride, reader.pa_scale,
                                      reader.offset)
+        if self.polya_analyzer is not None:
+            # poly(A) windows are cut from the raw signal: a 16-bit DAC
+            # stays integer (a lossless wire), a wider one becomes pA
+            if raw.dtype.kind in 'iu' and raw.dtype.itemsize <= 2:
+                rec.raw_dac = raw
+                rec.calib = (float(reader.pa_scale), float(reader.offset))
+            else:
+                rec.raw_pa = np.asarray(
+                    raw * np.float32(reader.pa_scale) +
+                    np.float32(reader.pa_scale * reader.offset), np.float32)
         rec.head_len = min(scaler.pooled_length, len(rec.pooled))
 
         # a basecall read failure is raised in PHASE C, so stage-1
@@ -180,28 +201,49 @@ class BatchAnalyzer:
         failed = {}     # rec -> SignalAnalysisError status
         demux_slots = {}
         survivors = []
+        polya_items = []
         for i, rec in enumerate(records):
             if rec.is_stopped():
                 continue
-            if 'adapter' not in rec.segments:
+            segments = rec.segments
+            if 'adapter' not in segments:
                 failed[rec] = 'adapter_not_detected'
                 continue
             if self.config['barcoding'] and stage1['demux_ok'][i]:
                 demux_slots[rec] = stage1['demux_probs'][i]
+            if self.polya_analyzer is not None:
+                rough_range = segments.get(
+                    'polya-tail', (segments['adapter'][1] + 1, None))
+                polya_items.append((rec, rough_range))
             survivors.append(rec)
 
+        if polya_items:
+            with trace('C:polya'):
+                self.polya_analyzer.process_batch(polya_items, self.stride)
+
+        unsplit_jobs = []       # (rec, payload_start, windows)
         with trace('C:events_trim'):
             for rec in survivors:
                 try:
                     events = self._load_events(rec)
                     if self.config['trim_adapter']:
                         self._trim_adapter(rec, events)
+                    if self.unsplit_detector is not None:
+                        payload_start, windows = \
+                            self.unsplit_detector.collect_windows(
+                                rec, rec.segments, self.stride)
+                        if windows:
+                            unsplit_jobs.append((rec, payload_start,
+                                                 windows))
                 except SignalAnalysisError as exc:
                     failed[rec] = exc.args[0]
                 except Exception as exc:
                     err = pack_unhandled_exception(
                         rec.filename, rec.read_id, exc, sys.exc_info()[2])
                     rec.set_error(err['status'], err['error_message'])
+
+        if unsplit_jobs:
+            self._filter_unsplit(unsplit_jobs, failed)
 
         # sequence length filter + labels
         for rec in survivors:
@@ -214,7 +256,7 @@ class BatchAnalyzer:
 
         for rec, status in failed.items():
             rec.set_status(status, stop=True)
-            rec.set_label('fail')
+            rec.set_label('artifact' if status == 'unsplit_read' else 'fail')
         for rec in survivors:
             if rec not in failed and not rec.error_message:
                 rec.set_label('pass')
@@ -256,6 +298,27 @@ class BatchAnalyzer:
         return {k: np.concatenate([c[k][:cnt] for c, cnt in
                                    zip(chunks, counts)])
                 for k in chunks[0]}
+
+    def _filter_unsplit(self, jobs, failed):
+        """Decode every unsplit window of the batch on the device, then
+        mark the reads that hold more than one molecule."""
+        flat = [(rec, lo, hi) for rec, _, windows in jobs
+                for lo, hi in windows]
+        with trace('C:unsplit_viterbi'):
+            runs = self.unsplit_detector.decode_runs_batched(flat)
+        cursor = 0
+        with trace('C:unsplit_analyze'):
+            for rec, payload_start, windows in jobs:
+                wruns = runs[cursor:cursor + len(windows)]
+                cursor += len(windows)
+                try:
+                    if self.unsplit_detector.analyze_read(
+                            rec, payload_start, windows, wruns):
+                        failed[rec] = 'unsplit_read'
+                except Exception as exc:
+                    err = pack_unhandled_exception(
+                        rec.filename, rec.read_id, exc, sys.exc_info()[2])
+                    rec.set_error(err['status'], err['error_message'])
 
     # ------------------------------------------------------------------
     def _load_events(self, rec):

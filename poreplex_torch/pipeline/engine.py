@@ -39,6 +39,8 @@ class DeviceEngine:
             input_length=sp.get('scaler_input_length'), device=self.device)
         self.segmodel = SegmentationHMM(config['segmentation_model'],
                                         device=self.device)
+        self.unsplitmodel = SegmentationHMM(
+            config['unsplit_read_detection_model'], device=self.device)
 
         self.barcoding = bool(config.get('barcoding'))
         if self.barcoding:

@@ -4,6 +4,8 @@ stage."""
 
 import os
 
+import numpy as np
+
 
 class ReadRecord:
 
@@ -27,12 +29,16 @@ class ReadRecord:
         self.barcode = None
         self.barcode_bestguess = None
         self.barcode_quality = None
+        self.polya = None                # poly(A) tail dict
         self.sequence = None             # (seq, qual, adapter_trim_len)
         self.sequence_length = 0
         self.mean_qscore = 0
         self.num_events = 0
 
         # transient analysis state (cleared after the batch)
+        self.raw_dac = None              # integer DAC signal (poly(A) on)
+        self.raw_pa = None               # float32 pA signal of a wide DAC
+        self.calib = (1.0, 0.0)          # (pa_scale, dac_offset)
         self.pooled = None               # stride-pooled pA signal
         self.head_len = 0                # scaler-head frames in pooled
         self.segments = None             # {state: (first, last)} pooled frames
@@ -55,6 +61,25 @@ class ReadRecord:
     def set_scaling_params(self, params):
         self.scaling_params = params
 
+    @property
+    def signal_length(self):
+        raw = self.raw_dac if self.raw_dac is not None else self.raw_pa
+        return len(raw)
+
+    def dac_window(self, begin, end):
+        """The raw samples of [begin, end) and the affine (a, b) onto the
+        SCALED pA signal: scaled = a * window + b. An integer DAC window is
+        a view, with the pA conversion and the read's scaling folded into
+        (a, b), so the poly(A) wire carries the integers losslessly."""
+        scale, shift = self.scaling_params
+        if self.raw_dac is not None:
+            pa_scale, dac_offset = self.calib
+            a = float(scale) * float(pa_scale)
+            return (self.raw_dac[begin:end], np.float32(a),
+                    np.float32(a * float(dac_offset) + float(shift)))
+        return (self.raw_pa[begin:end], np.float32(scale),
+                np.float32(shift))
+
     def set_label(self, newlabel):
         self.label = newlabel
 
@@ -68,7 +93,12 @@ class ReadRecord:
             raise Exception('Sequence is not set.')
         self.sequence = self.sequence[:2] + (newlength,)
 
+    def set_polya_tail(self, polya_info):
+        self.polya = polya_info
+
     def clear_cache(self):
+        self.raw_dac = None
+        self.raw_pa = None
         self.pooled = None
         self.events = None
         self.bcall = None
@@ -100,4 +130,6 @@ class ReadRecord:
             rep['barcode'] = self.barcode
             rep['barcode_guess'] = self.barcode_bestguess
             rep['barcode_score'] = self.barcode_quality
+        if self.polya is not None:
+            rep['polya'] = self.polya
         return rep

@@ -74,10 +74,12 @@ def _to_dac(pa):
 
 def simulate_read(rng, transcript_len=9000, polya_len=2500, adapter_len=5500,
                   preleader_len=700, leader_len=900, seq_per_event=0.35,
-                  noise=1.0, barcode=None):
+                  noise=1.0, barcode=None, extra_adapter_at=None):
     """One synthetic read from ``rng`` (a numpy.random.Generator).
     Durations are in raw samples; ``barcode`` (0..3) modulates the adapter
-    with that barcode's signature."""
+    with that barcode's signature; ``extra_adapter_at`` (a fraction of the
+    transcript) puts a second leader and adapter inside the transcript,
+    making a read of two molecules for the unsplit-read filter."""
     read_id = str(uuid.UUID(bytes=rng.bytes(16), version=4))
     run_id = uuid.UUID(bytes=rng.bytes(16), version=4).hex
     parts = []
@@ -104,6 +106,14 @@ def simulate_read(rng, transcript_len=9000, polya_len=2500, adapter_len=5500,
             nlevels = max(2, -(-transcript_len // 35))
             levels = rng.normal(mu, sd, nlevels)
             seg = np.repeat(levels, 35)[:dur] + rng.normal(0, 2.0, dur)
+            if extra_adapter_at is not None:
+                at = int(dur * extra_adapter_at)
+                ldur = min(900, max(0, dur - at))
+                adur = min(4000, max(0, dur - at - ldur))
+                seg[at:at + ldur] = rng.normal(*STATE_LEVELS['leader-high'],
+                                               ldur)
+                seg[at + ldur:at + ldur + adur] = rng.normal(
+                    *STATE_LEVELS['adapter'], adur)
         seg_start = pos
         pos += len(seg)
         if state.startswith('leader'):

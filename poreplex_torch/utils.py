@@ -1,5 +1,6 @@
-"""Small host-side utilities: stderr printing, directory creation, the
-per-read unknown_error report, and per-stage wall-time accounting."""
+"""Small host-side utilities: stderr printing, directory creation, interval
+union, the per-read unknown_error report, and per-stage wall-time
+accounting."""
 
 import contextlib
 import os
@@ -20,6 +21,21 @@ def ensure_dir_exists(filepath):
     dirname = os.path.dirname(filepath)
     if dirname and not os.path.isdir(dirname):
         os.makedirs(dirname, exist_ok=True)
+
+
+def union_intervals(intervals):
+    """Merge overlapping or touching [begin, end] intervals into a new
+    sorted list."""
+    if not intervals:
+        return []
+    ordered = sorted([list(iv) for iv in intervals])
+    merged = [ordered[0][:]]
+    for begin, end in ordered[1:]:
+        if begin <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+        else:
+            merged.append([begin, end])
+    return merged
 
 
 def pack_unhandled_exception(f5filename, read_id, exc, exc_tb=None):

@@ -62,7 +62,9 @@ def test_no_exception_handling_around_kernel_launches():
     statement, so a kernel failure can never turn into a silent fallback."""
     paths = (sorted((PACKAGE / 'kernels').glob('*.py')) +
              sorted((PACKAGE / 'models').glob('*.py')) +
-             [PACKAGE / 'pipeline' / 'engine.py'])
+             sorted((PACKAGE / 'ops').glob('*.py')) +
+             [PACKAGE / 'pipeline' / 'engine.py',
+              PACKAGE / 'pipeline' / 'polya.py'])
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             assert not isinstance(node, ast.Try), path
@@ -91,7 +93,9 @@ def test_cuda_without_cuda_raises(tmp_path):
 def test_wrappers_refuse_other_devices():
     """A tensor that is not on the CPU never takes the plain path: here a
     'meta' tensor, which no kernel takes, raises."""
-    from poreplex_torch.kernels import lstm as klstm, viterbi as kvit
+    from poreplex_torch.kernels import (event_detection as ked,
+                                        lstm as klstm, polya_dp as kdp,
+                                        viterbi as kvit)
     meta = dict(device='meta', dtype=torch.float32)
     p = {'kernel': torch.empty(1, 192, **meta),
          'recurrent': torch.empty(48, 192, **meta),
@@ -109,14 +113,20 @@ def test_wrappers_refuse_other_devices():
     x = torch.empty(2, 7, **meta)
     hmm = [torch.empty(6, **meta), torch.empty(6, 6, **meta)] + \
         [torch.empty(6, 2, **meta) for _ in range(3)]
+    lens = torch.empty(2, dtype=torch.int32, device='meta')
     with pytest.raises(ValueError, match='no kernel for device'):
-        kvit.viterbi_extents(x, torch.empty(2, dtype=torch.int32,
-                                            device='meta'), *hmm)
+        kvit.viterbi_extents(x, lens, *hmm)
+    with pytest.raises(ValueError, match='no kernel for device'):
+        kvit.viterbi(x, lens, *hmm)
+    with pytest.raises(ValueError, match='no kernel for device'):
+        ked.detect_peaks(x, x, lens, 3.0, 8.0, 7, 20, 4.0)
+    with pytest.raises(ValueError, match='no kernel for device'):
+        kdp.dp(torch.empty(2, 7, dtype=torch.bool, device='meta'), x, lens,
+               1.5, 110)
 
 
 @pytest.mark.parametrize('option,value', [
-    ('measure_polya', True), ('filter_unsplit_reads', True),
-    ('albacore_onthefly', True), ('live', True), ('fast5_output', True),
+    ('dashboard', True), ('resume', True), ('albacore_onthefly', True), ('live', True), ('fast5_output', True),
     ('nanopolish_output', True), ('dump_adapter_signals', True),
     ('dump_basecalls', True), ('minimap2_index', 'ref.mmi'),
     ('num_nodes', 2)])
@@ -125,6 +135,19 @@ def test_later_slice_options_raise(tmp_path, option, value):
     with pytest.raises(NotImplementedError, match='not ported yet'):
         build_config(str(tmp_path), str(tmp_path), device='cpu',
                      **{option: value})
+
+
+@pytest.mark.parametrize('option', ['measure_polya',
+                                    'filter_unsplit_reads'])
+def test_polya_and_unsplit_options_build(tmp_path, option):
+    """Ported stages build on the CPU when asked and want CUDA by
+    default."""
+    from poreplex_torch.config import build_config
+    config = build_config(str(tmp_path), str(tmp_path), device='cpu',
+                          **{option: True})
+    assert config[option] is True
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        build_config(str(tmp_path), str(tmp_path), **{option: True})
 
 
 def test_tpu_knobs_are_unknown(tmp_path):
@@ -139,6 +162,8 @@ def test_kernel_build_targets_hopper():
     from poreplex_torch.kernels import _build
     assert 'arch=compute_90a,code=sm_90a' in _build.FLAGS
     assert '--fmad=false' in _build.SOURCE_FLAGS['viterbi.cu']
+    assert set(_build.SOURCES) == {p.name for p in
+                                   (PACKAGE / 'csrc').glob('*.cu')}
     for source in _build.SOURCES:
         assert (PACKAGE / 'csrc' / source).is_file()
         path = _build.library_path(source)

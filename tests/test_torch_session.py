@@ -1,15 +1,19 @@
 """A poreplex_torch session (on the CPU) and a poreplex_tpu session on the
-same fixture, built with the recipe of tests/test_golden_session.py, with
-barcoding and adapter trimming on and poly(A) and the unsplit filter off,
-write byte-identical sequencing summaries and FASTQ files."""
+same fixture, built with the recipe of tests/test_golden_session.py, write
+byte-identical sequencing summaries and FASTQ files: with barcoding and
+adapter trimming on, and again with poly(A) and the unsplit filter on as
+well, where the torch session's canonical outputs also equal
+tests/golden/session_golden.json."""
 
 import gzip
+import json
 import logging
 import os
 
 import pytest
 
 from poreplex_tpu import simulate
+from test_golden_session import GOLDEN_PATH, _canonical_outputs
 
 # the JAX session's resume journal; resume belongs to a later slice
 NOT_PORTED = {'.processed-reads'}
@@ -33,8 +37,9 @@ def reduce_shapes(config):
     config['signal_processing']['scaler_input_length'] = 3000
 
 
-@pytest.fixture(scope='module')
-def both_sessions(tmp_path_factory):
+def run_both(tmp_path_factory, **options):
+    """(torch outputs, JAX outputs, (torch printer, JAX printer), torch
+    output directory) of one fixture run by both packages."""
     from poreplex_tpu.config import build_config as jax_build_config
     from poreplex_tpu.pipeline.session import \
         ProcessingSession as JaxSession
@@ -46,7 +51,7 @@ def both_sessions(tmp_path_factory):
                               polya_len=2400)
     simulate.make_fixture_dir(str(indir / 'nested'), n_reads=3, seed=21,
                               multi_read=True, basecall='guppy')
-    options = dict(device_batch_size=8, barcoding=True, trim_adapter=True,
+    options.update(device_batch_size=8, barcoding=True, trim_adapter=True,
                    quiet=True)
 
     jax_out = str(tmp_path_factory.mktemp('session-jax'))
@@ -61,7 +66,19 @@ def both_sessions(tmp_path_factory):
     printer = ProcessingSession.run(config, logging.getLogger('test-torch'))
     assert printer is not None
     return (output_files(torch_out), output_files(jax_out),
-            (printer, jax_printer))
+            (printer, jax_printer), torch_out)
+
+
+@pytest.fixture(scope='module')
+def both_sessions(tmp_path_factory):
+    return run_both(tmp_path_factory)[:3]
+
+
+@pytest.fixture(scope='module')
+def full_sessions(tmp_path_factory):
+    """The golden recipe: poly(A) and the unsplit filter on."""
+    return run_both(tmp_path_factory, measure_polya=True,
+                    filter_unsplit_reads=True)
 
 
 def test_sequencing_summary_identical(both_sessions):
@@ -95,3 +112,22 @@ def test_final_summary_prints(both_sessions, tmp_path):
     assert texts[0].startswith('==== Result Summary ====')
     assert 'Successfully processed' in texts[0]
     assert texts[0] == texts[1]
+
+
+def test_polya_unsplit_outputs_identical(full_sessions):
+    got, ref, _, _ = full_sessions
+    summary = got['sequencing_summary.txt'].decode().splitlines()
+    assert summary[0].endswith('\tpolya_dwell')
+    assert len(summary) == 10
+    assert all(row.split('\t')[-1] for row in summary[1:])
+    assert set(got) == set(ref)
+    for path in got:
+        assert got[path] == ref[path], path
+
+
+def test_polya_unsplit_outputs_match_golden(full_sessions):
+    _, _, _, outdir = full_sessions
+    golden = json.loads(GOLDEN_PATH.read_text())
+    outputs = _canonical_outputs(outdir)
+    assert outputs['summary'] == golden['summary']
+    assert outputs['fastq'] == golden['fastq']
