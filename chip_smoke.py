@@ -9,12 +9,14 @@
    shapes the main path gives it: stage 1 at B = 256 reads (scaler
    T = 2000, demux T = 300, segmentation T = 6666), the poly(A) peak
    detector at [256, 8192] and [8, 16384], the poly(A) DP at [512, 512]
-   and [512, 1024], the unsplit Viterbi at [1024, 1024] and [1024, 128].
-   LSTM outputs within 5e-5 absolute; Viterbi extents and paths, peak
-   emissions and DP intervals exactly equal; Viterbi logp within 1e-5
-   relative. Times the kernel, the plain version and, where one PyTorch
-   call computes the same function, that call (torch.nn.LSTM with the
-   converted weights);
+   and [512, 1024], the unsplit Viterbi at [1024, 1024] and [1024, 128];
+   the scaler LSTM and the demux LSTM(64) also at ragged batches of 37
+   reads and 1 read. LSTM outputs within 5e-5 absolute; Viterbi extents
+   and paths, peak emissions and DP intervals exactly equal; Viterbi logp
+   within 1e-5 relative. Times the kernel, the plain version and, where
+   one PyTorch call computes the same function, that call (torch.nn.LSTM
+   with the converted weights); an LSTM line also gives the time per step
+   and the launch (reads per block, threads, blocks);
 3. simulates 512 reads (basecalls included, poly(A) tails of 500 to
    20,000 samples, transcripts of 9,000 to 90,000 raw samples, one in 16
    made of two molecules) from a fixed seed and runs them through
@@ -54,6 +56,9 @@ TRANSCRIPT_SAMPLES = (9000, 90001)
 # barcodes from phred 7 (a score of 0.70)
 BARCODE_PHRED = 7
 LSTM_ATOL = 5e-5
+# batches of the redesigned LSTM kernels beside the main one: not a
+# multiple of a block's reads, and one read
+RAGGED = (37, 1)
 LOGP_RTOL = 1e-5
 # published peaks of an H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, and HBM3 bandwidth
@@ -160,6 +165,9 @@ def torch_lstm(layers, bidirectional=False):
 
 
 def check_lstms(engine, rng):
+    """The three LSTM kernels at the main path's shapes, kernels 1 and 3
+    also at the ragged batches RAGGED: within LSTM_ATOL of their plain
+    versions, timed beside torch.nn.LSTM."""
     from poreplex_torch.kernels import lstm as klstm
     from poreplex_torch.ops import rnn
     scaler, demux = engine.scaler, engine.demux
@@ -174,48 +182,55 @@ def check_lstms(engine, rng):
     seq = klstm.bidirectional_lstm(demux.bilstm_fwd, demux.bilstm_bwd,
                                    windows)
 
+    # (name, Pallas entry, hidden, kernel, plain, torch.nn.LSTM, main input,
+    #  the library output's last-h pick, flops(B, T), bytes(B, T), ragged)
     cases = [
-        ('lstm2_stacked', 'poreplex_tpu/ops/pallas_rnn.py:102',
-         lambda: klstm.lstm2_stacked(scaler.lstm1, scaler.lstm2, heads),
-         lambda: rnn.lstm2_stacked(scaler.lstm1, scaler.lstm2, heads),
+        ('lstm2_stacked', 'poreplex_tpu/ops/pallas_rnn.py:102', 48,
+         lambda xs: klstm.lstm2_stacked(scaler.lstm1, scaler.lstm2, xs),
+         lambda xs: rnn.lstm2_stacked(scaler.lstm1, scaler.lstm2, xs),
          torch_lstm([[scaler.lstm1], [scaler.lstm2]]), heads,
          lambda out: out[:, -1],
-         lstm_flops(BATCH, heads.shape[1], 1, 48, 1) +
-         lstm_flops(BATCH, heads.shape[1], 48, 48, 1),
-         heads.numel() * 4 + BATCH * 48 * 4),
-        ('bidirectional_lstm', 'poreplex_tpu/ops/pallas_rnn.py:236',
-         lambda: klstm.bidirectional_lstm(demux.bilstm_fwd, demux.bilstm_bwd,
-                                          windows),
-         lambda: rnn.bidirectional_lstm(demux.bilstm_fwd, demux.bilstm_bwd,
-                                        windows),
+         lambda B, T: lstm_flops(B, T, 1, 48, 1) + lstm_flops(B, T, 48, 48, 1),
+         lambda B, T: B * T * 4 + B * 48 * 4, RAGGED),
+        ('bidirectional_lstm', 'poreplex_tpu/ops/pallas_rnn.py:236', 48,
+         lambda xs: klstm.bidirectional_lstm(demux.bilstm_fwd,
+                                             demux.bilstm_bwd, xs),
+         lambda xs: rnn.bidirectional_lstm(demux.bilstm_fwd, demux.bilstm_bwd,
+                                           xs),
          torch_lstm([[demux.bilstm_fwd, demux.bilstm_bwd]],
                     bidirectional=True), windows, lambda out: out,
-         2 * lstm_flops(BATCH, 300, 1, 48, 1),
-         windows.numel() * 4 + BATCH * 300 * 96 * 4),
-        ('lstm_last', 'poreplex_tpu/ops/pallas_rnn.py:174',
-         lambda: klstm.lstm_last(demux.lstm2, seq),
-         lambda: rnn.lstm(demux.lstm2, seq, return_sequences=False),
+         lambda B, T: 2 * lstm_flops(B, T, 1, 48, 1),
+         lambda B, T: B * T * 4 + B * T * 96 * 4, ()),
+        ('lstm_last', 'poreplex_tpu/ops/pallas_rnn.py:174', 64,
+         lambda xs: klstm.lstm_last(demux.lstm2, xs),
+         lambda xs: rnn.lstm(demux.lstm2, xs, return_sequences=False),
          torch_lstm([[demux.lstm2]]), seq, lambda out: out[:, -1],
-         lstm_flops(BATCH, 300, 96, 64, 1),
-         seq.numel() * 4 + BATCH * 64 * 4),
+         lambda B, T: lstm_flops(B, T, 96, 64, 1),
+         lambda B, T: B * T * 96 * 4 + B * 64 * 4, RAGGED),
     ]
-    for name, replaces, kernel, plain, net, xs, pick, flops, nbytes in cases:
-        got = kernel()
-        ref = plain()
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        if not (np.isfinite(err) and err <= LSTM_ATOL):
-            raise AssertionError('{}: kernel vs plain max abs err {} > {}'
-                                 .format(name, err, LSTM_ATOL))
-        with torch.inference_mode():
-            lib_err = float((pick(net(xs)[0]) - got).abs().max())
-            library_ms = time_ms(lambda: net(xs), reps=5)
-        rows.append(dict(
-            name=name, route='cuda', source='poreplex_torch/csrc/lstm.cu',
-            replaces=replaces, shape=list(xs.shape[:2]), max_abs_err=err,
-            ms=time_ms(kernel, reps=5), plain_ms=time_ms(plain, reps=2),
-            library_ms=library_ms, flops=flops, nbytes=nbytes,
-            library_err=lib_err))
+    for (name, replaces, hidden, kernel, plain, net, xs_main, pick, flops,
+         nbytes, ragged) in cases:
+        for batch in (BATCH,) + ragged:
+            xs = xs_main[:batch].contiguous()
+            seqlen = xs.shape[1]
+            got = kernel(xs)
+            ref, plain_ms = timed(lambda: plain(xs))
+            err = float((got - ref).abs().max())
+            if not (np.isfinite(err) and err <= LSTM_ATOL):
+                raise AssertionError('{} at {} reads: kernel vs plain max '
+                                     'abs err {} > {}'.format(
+                                         name, batch, err, LSTM_ATOL))
+            with torch.inference_mode():
+                lib_err = float((pick(net(xs)[0]) - got).abs().max())
+                library_ms = time_ms(lambda: net(xs), reps=5)
+            rows.append(dict(
+                name=name, route='cuda', source='poreplex_torch/csrc/lstm.cu',
+                replaces=replaces, shape=[batch, seqlen], max_abs_err=err,
+                ms=time_ms(lambda: kernel(xs), reps=5), plain_ms=plain_ms,
+                library_ms=library_ms, flops=flops(batch, seqlen),
+                nbytes=nbytes(batch, seqlen), library_err=lib_err,
+                steps=seqlen,
+                launch=klstm.launch_shape(name, batch, hidden)))
     return rows
 
 
@@ -406,7 +421,7 @@ def check_unsplit_viterbi(engine, rng):
 
 def kernel_line(row):
     bound_ms, bound_by = bound(row['flops'], row['nbytes'])
-    return ('kernel {name} {shape}: max_err={max_abs_err:.3g} '
+    line = ('kernel {name} {shape}: max_err={max_abs_err:.3g} '
             'kernel_ms={ms:.4f} bound_ms={bound:.5f} ({by}) '
             'plain_ms={plain_ms:.2f} library_ms={lib} (library vs kernel '
             'max err {lib_err})'.format(
@@ -415,6 +430,10 @@ def kernel_line(row):
                 lib_err=('{:.3g}'.format(row['library_err'])
                          if 'library_err' in row else 'none'),
                 bound=bound_ms, by=bound_by, **row))
+    if 'steps' in row:
+        line += (' per_step_ms={:.6f} launch=(ROWS {}, threads {}, blocks '
+                 '{})'.format(row['ms'] / row['steps'], *row['launch']))
+    return line
 
 
 def run_main_path(config, rng):

@@ -1,9 +1,11 @@
 """Wrappers of the LSTM recurrence kernels (``csrc/lstm.cu``).
 
 Same signatures and results as the plain versions in ``ops/rnn.py``, which
-run for CPU tensors. For CUDA tensors the input projection of every step is
-one ``torch.matmul`` (hoisted out of the recurrence, as in the JAX
-package) and the recurrence is one kernel launch:
+run for CPU tensors. For CUDA tensors each is one kernel launch; the
+demultiplexer's input products are one ``torch.matmul`` each (hoisted out
+of the recurrence, as in the JAX package; ``lstm_last``'s kernel adds the
+bias itself), while the scaler's width-1 projection is folded into its
+kernel whole:
 
   lstm2_stacked       scaler LSTM(48) -> LSTM(48), last h      [B, 48]
   bidirectional_lstm  demux BiLSTM(48), whole sequence         [B, T, 96]
@@ -20,15 +22,29 @@ from ..ops import rnn
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'pp_lstm2_stacked': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    'pp_lstm_seq': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    'pp_lstm2_stacked': [_P] * 8 + [_I, _I, _I, _P],
+    'pp_lstm_seq': [_P] * 6 + [_I, _I, _I, _I, _P],
+    'pp_lstm_last': [_P] * 4 + [_I, _I, _I, _P],
+    'pp_lstm_launch_shape': [_I, _I, _I, _P],
 }
 STACKED_HIDDEN = (48,)
-SEQ_HIDDEN = (48, 64)
+SEQ_HIDDEN = (48,)
+LAST_HIDDEN = (48, 64)
+# kernel numbers of pp_lstm_launch_shape
+_KERNELS = {'lstm2_stacked': 0, 'bidirectional_lstm': 1, 'lstm_last': 2}
 
 
 def _lib():
     return _build.library('lstm.cu', _SIGNATURES)
+
+
+def launch_shape(name, batch, hidden):
+    """(reads per block, threads per block, blocks) of the kernel behind
+    wrapper ``name`` for ``batch`` reads of width ``hidden``."""
+    shape = (ctypes.c_int * 3)()
+    _build.check(_lib().pp_lstm_launch_shape(_KERNELS[name], hidden, batch,
+                                             ctypes.addressof(shape)), name)
+    return tuple(shape)
 
 
 def _check_layer(name, params, inputs, hidden_sizes):
@@ -55,24 +71,27 @@ def _check_input(name, xs):
 
 
 def lstm2_stacked(params1, params2, xs):
-    """Two stacked LSTM layers; layer 2's last h [B, H]."""
+    """Two stacked LSTM layers; layer 2's last h [B, H]. On CUDA the input
+    width must be 1: the kernel computes x * kernel + bias itself."""
     if xs.device.type == 'cpu':
         return rnn.lstm2_stacked(params1, params2, xs)
     _check_input('lstm2_stacked', xs)
-    h1 = _check_layer('lstm2_stacked', params1, xs.shape[2], STACKED_HIDDEN)
+    if xs.shape[2] != 1:
+        raise ValueError('lstm2_stacked: the kernel takes input width 1, '
+                         'not {}'.format(xs.shape[2]))
+    h1 = _check_layer('lstm2_stacked', params1, 1, STACKED_HIDDEN)
     h2 = _check_layer('lstm2_stacked', params2, h1, STACKED_HIDDEN)
     if h1 != h2:
         raise ValueError('lstm2_stacked: layers of unequal width')
-    r1, k2, b2, r2 = (params1['recurrent'], params2['kernel'],
-                      params2['bias'], params2['recurrent'])
-    zx = rnn.project(params1, xs)
-    batch, seqlen, _ = zx.shape
+    k1, b1, r1 = params1['kernel'], params1['bias'], params1['recurrent']
+    k2, b2, r2 = params2['kernel'], params2['bias'], params2['recurrent']
+    batch, seqlen, _ = xs.shape
     out = torch.empty((batch, h2), dtype=torch.float32, device=xs.device)
-    _build.require_cuda('lstm2_stacked', zx, r1, k2, b2, r2, out)
+    _build.require_cuda('lstm2_stacked', xs, k1, b1, r1, k2, b2, r2, out)
     code = _lib().pp_lstm2_stacked(
-        _build.ptr(zx), _build.ptr(r1), _build.ptr(k2), _build.ptr(b2),
-        _build.ptr(r2), _build.ptr(out), batch, seqlen, h1,
-        _build.stream(xs.device))
+        _build.ptr(xs), _build.ptr(k1), _build.ptr(b1), _build.ptr(r1),
+        _build.ptr(k2), _build.ptr(b2), _build.ptr(r2), _build.ptr(out),
+        batch, seqlen, h1, _build.stream(xs.device))
     _build.check(code, 'lstm2_stacked')
     launches['lstm2_stacked'] += 1
     return out
@@ -109,16 +128,16 @@ def lstm_last(params, xs):
     if xs.device.type == 'cpu':
         return rnn.lstm(params, xs, return_sequences=False)
     _check_input('lstm_last', xs)
-    hidden = _check_layer('lstm_last', params, xs.shape[2], SEQ_HIDDEN)
-    zx = rnn.project(params, xs)
-    batch, seqlen, _ = zx.shape
+    hidden = _check_layer('lstm_last', params, xs.shape[2], LAST_HIDDEN)
+    batch, seqlen, inputs = xs.shape
+    # rnn.project's product; the kernel adds the bias with the same rounding
+    xk = torch.matmul(xs.reshape(batch * seqlen, inputs), params['kernel'])
     out = torch.empty((batch, hidden), dtype=torch.float32, device=xs.device)
-    rec = params['recurrent']
-    _build.require_cuda('lstm_last', zx, rec, out)
-    code = _lib().pp_lstm_seq(
-        _build.ptr(zx), _build.ptr(zx), _build.ptr(rec), _build.ptr(rec),
-        None, _build.ptr(out), batch, seqlen, hidden, 1,
-        _build.stream(xs.device))
+    bias, rec = params['bias'], params['recurrent']
+    _build.require_cuda('lstm_last', xk, bias, rec, out)
+    code = _lib().pp_lstm_last(_build.ptr(xk), _build.ptr(bias),
+                               _build.ptr(rec), _build.ptr(out), batch,
+                               seqlen, hidden, _build.stream(xs.device))
     _build.check(code, 'lstm_last')
     launches['lstm_last'] += 1
     return out

@@ -78,6 +78,33 @@ def test_port_matches_xla_and_pallas(name):
     np.testing.assert_allclose(got, ref_pallas, atol=ATOL)
 
 
+def test_width1_projection_is_two_roundings():
+    """rnn.project at input width 1 is x * kernel rounded, then + bias
+    rounded: the arithmetic the scaler kernel repeats in place of the GEMM,
+    so its zx is bit-identical."""
+    rng = np.random.RandomState(9)
+    p = random_params(rng, 1, 48)
+    xs = rng.normal(90, 12, (3, 50, 1)).astype(np.float32)
+    got = rnn.project(as_torch(p), torch.from_numpy(xs)).numpy()
+    want = (xs * p['kernel'][0]) + p['bias']
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_stacked_kernel_takes_width_one_only():
+    """The scaler kernel folds a width-1 projection; its wrapper refuses a
+    wider input before any launch (a 'meta' tensor stands for the card's)."""
+    meta = dict(device='meta', dtype=torch.float32)
+    p1 = {'kernel': torch.empty(2, 192, **meta),
+          'recurrent': torch.empty(48, 192, **meta),
+          'bias': torch.empty(192, **meta)}
+    p2 = {'kernel': torch.empty(48, 192, **meta),
+          'recurrent': torch.empty(48, 192, **meta),
+          'bias': torch.empty(192, **meta)}
+    with pytest.raises(ValueError, match='input width 1, not 2'):
+        klstm.lstm2_stacked(p1, p2, torch.empty(2, 5, 2, **meta))
+
+
 def test_reverse_lstm_matches_xla():
     rng = np.random.RandomState(8)
     p = random_params(rng, 3, 16)
