@@ -8,15 +8,18 @@
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it: stage 1 at B = 256 reads (scaler
    T = 2000, demux T = 300, segmentation T = 6666), the poly(A) peak
-   detector at [256, 8192] and [8, 16384], the poly(A) DP at [512, 512]
-   and [512, 1024], the unsplit Viterbi at [1024, 1024] and [1024, 128];
-   the scaler LSTM and the demux LSTM(64) also at ragged batches of 37
-   reads and 1 read. LSTM outputs within 5e-5 absolute; Viterbi extents
-   and paths, peak emissions and DP intervals exactly equal; Viterbi logp
-   within 1e-5 relative. Times the kernel, the plain version and, where
-   one PyTorch call computes the same function, that call (torch.nn.LSTM
-   with the converted weights); an LSTM line also gives the time per step
-   and the launch (reads per block, threads, blocks);
+   detector at [256, 8192], [8, 16384] and, after step 3, [64, 32768] and
+   [37, 2002] (against the plain version on CPU copies of the inputs;
+   the last one's length is not a multiple of 4), the poly(A)
+   DP at [512, 512] and [512, 1024], the unsplit Viterbi at [1024, 1024]
+   and [1024, 128]; the three LSTMs also at ragged batches of 37 reads and
+   1 read. LSTM outputs within 5e-5 absolute; Viterbi extents and paths,
+   peak emissions and DP intervals exactly equal; Viterbi logp within 1e-5
+   relative. Times the kernel, the plain version and, where one PyTorch
+   call computes the same function, that call (torch.nn.LSTM with the
+   converted weights); an LSTM line also gives the time per step and the
+   peak detector's the time per frame, both with the launch (reads per
+   block, threads, blocks);
 3. simulates 512 reads (basecalls included, poly(A) tails of 500 to
    20,000 samples, transcripts of 9,000 to 90,000 raw samples, one in 16
    made of two molecules) from a fixed seed and runs them through
@@ -56,8 +59,8 @@ TRANSCRIPT_SAMPLES = (9000, 90001)
 # barcodes from phred 7 (a score of 0.70)
 BARCODE_PHRED = 7
 LSTM_ATOL = 5e-5
-# batches of the redesigned LSTM kernels beside the main one: not a
-# multiple of a block's reads, and one read
+# batches of the LSTM kernels beside the main one: not a multiple of a
+# block's reads, and one read
 RAGGED = (37, 1)
 LOGP_RTOL = 1e-5
 # published peaks of an H100 SXM (NVIDIA data sheet): float32 outside the
@@ -165,9 +168,9 @@ def torch_lstm(layers, bidirectional=False):
 
 
 def check_lstms(engine, rng):
-    """The three LSTM kernels at the main path's shapes, kernels 1 and 3
-    also at the ragged batches RAGGED: within LSTM_ATOL of their plain
-    versions, timed beside torch.nn.LSTM."""
+    """The three LSTM kernels at the main path's shapes and at the ragged
+    batches RAGGED: within LSTM_ATOL of their plain versions, timed beside
+    torch.nn.LSTM."""
     from poreplex_torch.kernels import lstm as klstm
     from poreplex_torch.ops import rnn
     scaler, demux = engine.scaler, engine.demux
@@ -200,7 +203,7 @@ def check_lstms(engine, rng):
          torch_lstm([[demux.bilstm_fwd, demux.bilstm_bwd]],
                     bidirectional=True), windows, lambda out: out,
          lambda B, T: 2 * lstm_flops(B, T, 1, 48, 1),
-         lambda B, T: B * T * 4 + B * T * 96 * 4, ()),
+         lambda B, T: B * T * 4 + B * T * 96 * 4, RAGGED),
         ('lstm_last', 'poreplex_tpu/ops/pallas_rnn.py:174', 64,
          lambda xs: klstm.lstm_last(demux.lstm2, xs),
          lambda xs: rnn.lstm(demux.lstm2, xs, return_sequences=False),
@@ -229,7 +232,7 @@ def check_lstms(engine, rng):
                 ms=time_ms(lambda: kernel(xs), reps=5), plain_ms=plain_ms,
                 library_ms=library_ms, flops=flops(batch, seqlen),
                 nbytes=nbytes(batch, seqlen), library_err=lib_err,
-                steps=seqlen,
+                steps=seqlen, step_unit='step',
                 launch=klstm.launch_shape(name, batch, hidden)))
     return rows
 
@@ -330,15 +333,19 @@ def exact_row(name, source, replaces, shape, got, ref, kernel, plain_ms,
                 nbytes=nbytes)
 
 
-def check_peaks(rng, polya_config):
-    """The dual peak detector on t-statistics of poly(A) windows."""
+def check_peaks(rng, polya_config, shapes, plain_device=DEVICE):
+    """The dual peak detector on t-statistics of poly(A) windows of each
+    [B, T] of shapes, against its plain version on plain_device: on the
+    CPU, CPU copies of the inputs (the plain version's loop of small
+    launches would take some 30 s on the card at [64, 32768]), and its
+    plain_ms is then the CPU's."""
     from poreplex_torch.kernels import event_detection as ked
     from poreplex_torch.ops import event_detection as ed
     p = polya_config['event_detection']
     args = (float(p['threshold1']), float(p['threshold2']),
             p['window_length1'], p['window_length2'], float(p['peak_height']))
     rows = []
-    for B, T in ((BATCH, 8192), (8, 16384)):
+    for B, T in shapes:
         xs, lens = polya_windows(rng, B, T)
         x = torch.as_tensor(xs, device=DEVICE)
         lengths = torch.as_tensor(lens, device=DEVICE)
@@ -347,16 +354,25 @@ def check_peaks(rng, polya_config):
         t2 = ed.compute_tstat(cs, css, lengths, p['window_length2'])
         kernel = lambda: ked.detect_peaks(t1, t2, lengths, *args)
         got = kernel()
-        ref, plain_ms = timed(lambda: ed.detect_peaks(t1, t2, lengths,
-                                                      *args))
-        rows.append(exact_row(
+        if plain_device == DEVICE:
+            ref, plain_ms = timed(lambda: ed.detect_peaks(t1, t2, lengths,
+                                                          *args))
+        else:
+            t0 = time.perf_counter()
+            ref = ed.detect_peaks(t1.cpu(), t2.cpu(), lengths.cpu(), *args)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got = [g.cpu() for g in got]
+        row = exact_row(
             'detect_peaks', 'poreplex_torch/csrc/event_detection.cu',
             'poreplex_tpu/ops/pallas_event_detection.py:137', [B, T], got,
             ref, kernel, plain_ms,
             flops=int(lens.sum()) * PEAK_FRAME_OPS,
             # the two t-statistics over the valid frames, both emission
             # streams over every frame, the lengths
-            nbytes=2 * 4 * int(lens.sum()) + 2 * 4 * B * T + 4 * B))
+            nbytes=2 * 4 * int(lens.sum()) + 2 * 4 * B * T + 4 * B)
+        row.update(steps=T, step_unit='frame', launch=ked.launch_shape(B),
+                   plain_on=plain_device)
+        rows.append(row)
     return rows
 
 
@@ -423,16 +439,20 @@ def kernel_line(row):
     bound_ms, bound_by = bound(row['flops'], row['nbytes'])
     line = ('kernel {name} {shape}: max_err={max_abs_err:.3g} '
             'kernel_ms={ms:.4f} bound_ms={bound:.5f} ({by}) '
-            'plain_ms={plain_ms:.2f} library_ms={lib} (library vs kernel '
-            'max err {lib_err})'.format(
+            'plain_ms={plain_ms:.2f}{plain_where} library_ms={lib} (library '
+            'vs kernel max err {lib_err})'.format(
+                plain_where=(' (on the CPU)' if row.get('plain_on') == 'cpu'
+                             else ''),
                 lib=('{:.4f}'.format(row['library_ms'])
                      if row['library_ms'] is not None else 'none'),
                 lib_err=('{:.3g}'.format(row['library_err'])
                          if 'library_err' in row else 'none'),
                 bound=bound_ms, by=bound_by, **row))
     if 'steps' in row:
-        line += (' per_step_ms={:.6f} launch=(ROWS {}, threads {}, blocks '
-                 '{})'.format(row['ms'] / row['steps'], *row['launch']))
+        line += (' per_{}_us={:.4f} launch=(ROWS {}, threads {}, blocks '
+                 '{})'.format(row['step_unit'],
+                              row['ms'] / row['steps'] * 1e3,
+                              *row['launch']))
     return line
 
 
@@ -790,8 +810,9 @@ def main():
         engine = DeviceEngine(config)
         with torch.inference_mode():
             rows = (check_lstms(engine, rng) + check_viterbi(engine, rng) +
-                    check_peaks(rng, config['polya_dwell']) + check_dp(rng) +
-                    check_unsplit_viterbi(engine, rng))
+                    check_peaks(rng, config['polya_dwell'],
+                                ((BATCH, 8192), (8, 16384))) +
+                    check_dp(rng) + check_unsplit_viterbi(engine, rng))
         del engine
         for row in rows:
             log(kernel_line(row))
@@ -814,6 +835,18 @@ def main():
         check_against_cpu(config, analyzer, stage1_inputs[:8])
         check_polya_unsplit_against_cpu(config, results, reads, stage1_run,
                                         polya_blens)
+        # the 32,768 bucket's launch, and a batch that is not whole blocks
+        # with a length that is not a multiple of 4 (the kernel's 4-byte
+        # copies), held against the plain version on the CPU after the
+        # main path (whose host work it would otherwise precede), from a
+        # generator of their own
+        with torch.inference_mode():
+            wide = check_peaks(np.random.default_rng(SEED + 1),
+                               config['polya_dwell'],
+                               ((64, 32768), (37, 2002)), 'cpu')
+        for row in wide:
+            log(kernel_line(row))
+        rows += wide
         profile('stage-1, {} reads'.format(BATCH),
                 lambda: analyzer.engine.run_stage1_flat(
                     stage1_inputs[:BATCH]))

@@ -17,11 +17,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     'pp_detect_peaks': [_P] * 5 + [_I, _I, _F, _F, _I, _I, _F, _P],
+    'pp_peaks_launch_shape': [_I, _P],
 }
 
 
 def _lib():
     return _build.library('event_detection.cu', _SIGNATURES)
+
+
+def launch_shape(batch):
+    """(reads per block, threads per block, blocks) of the kernel for
+    ``batch`` reads."""
+    shape = (ctypes.c_int * 3)()
+    _build.check(_lib().pp_peaks_launch_shape(batch, ctypes.addressof(shape)),
+                 'detect_peaks')
+    return tuple(shape)
 
 
 def detect_peaks(tstat1, tstat2, lengths, threshold1, threshold2,
@@ -41,10 +51,10 @@ def detect_peaks(tstat1, tstat2, lengths, threshold1, threshold2,
         raise ValueError('detect_peaks: lengths must be [B]')
     if batch == 0 or seqlen == 0:
         raise ValueError('detect_peaks: empty batch or sequence')
-    t1 = tstat1.t().contiguous()                     # [T, B]: coalesced
-    t2 = tstat2.t().contiguous()
+    t1 = tstat1.contiguous()
+    t2 = tstat2.contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    em_s = torch.empty((seqlen, batch), dtype=torch.int32,
+    em_s = torch.empty((batch, seqlen), dtype=torch.int32,
                        device=tstat1.device)
     em_l = torch.empty_like(em_s)
     _build.require_cuda('detect_peaks', t1, t2, lens, em_s, em_l)
@@ -55,4 +65,4 @@ def detect_peaks(tstat1, tstat2, lengths, threshold1, threshold2,
         int(window_length2), float(peak_height), _build.stream(t1.device))
     _build.check(code, 'detect_peaks')
     launches['detect_peaks'] += 1
-    return em_s.t(), em_l.t()
+    return em_s, em_l

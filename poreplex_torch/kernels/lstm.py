@@ -1,11 +1,11 @@
 """Wrappers of the LSTM recurrence kernels (``csrc/lstm.cu``).
 
 Same signatures and results as the plain versions in ``ops/rnn.py``, which
-run for CPU tensors. For CUDA tensors each is one kernel launch; the
-demultiplexer's input products are one ``torch.matmul`` each (hoisted out
-of the recurrence, as in the JAX package; ``lstm_last``'s kernel adds the
-bias itself), while the scaler's width-1 projection is folded into its
-kernel whole:
+run for CPU tensors. For CUDA tensors each is one kernel launch. The
+width-1 input projections of the scaler and of the demultiplexer's BiLSTM
+are folded into their kernels whole; the LSTM(64)'s input product is one
+``torch.matmul`` (hoisted out of the recurrence, as in the JAX package),
+and its kernel adds the bias itself:
 
   lstm2_stacked       scaler LSTM(48) -> LSTM(48), last h      [B, 48]
   bidirectional_lstm  demux BiLSTM(48), whole sequence         [B, T, 96]
@@ -23,7 +23,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     'pp_lstm2_stacked': [_P] * 8 + [_I, _I, _I, _P],
-    'pp_lstm_seq': [_P] * 6 + [_I, _I, _I, _I, _P],
+    'pp_lstm_seq': [_P] * 8 + [_I, _I, _I, _P],
     'pp_lstm_last': [_P] * 4 + [_I, _I, _I, _P],
     'pp_lstm_launch_shape': [_I, _I, _I, _P],
 }
@@ -98,26 +98,30 @@ def lstm2_stacked(params1, params2, xs):
 
 
 def bidirectional_lstm(fwd_params, bwd_params, xs):
-    """Keras Bidirectional(concat) LSTM: [B, T, 2H]."""
+    """Keras Bidirectional(concat) LSTM: [B, T, 2H]. On CUDA the input width
+    must be 1: the kernel computes x * kernel + bias itself."""
     if xs.device.type == 'cpu':
         return rnn.bidirectional_lstm(fwd_params, bwd_params, xs)
     _check_input('bidirectional_lstm', xs)
-    hidden = _check_layer('bidirectional_lstm', fwd_params, xs.shape[2],
-                          SEQ_HIDDEN)
-    if _check_layer('bidirectional_lstm', bwd_params, xs.shape[2],
+    if xs.shape[2] != 1:
+        raise ValueError('bidirectional_lstm: the kernel takes input width '
+                         '1, not {}'.format(xs.shape[2]))
+    hidden = _check_layer('bidirectional_lstm', fwd_params, 1, SEQ_HIDDEN)
+    if _check_layer('bidirectional_lstm', bwd_params, 1,
                     SEQ_HIDDEN) != hidden:
         raise ValueError('bidirectional_lstm: directions of unequal width')
-    zx_f = rnn.project(fwd_params, xs)
-    zx_b = rnn.project(bwd_params, xs)
-    batch, seqlen, _ = zx_f.shape
+    kf, bf, rf = fwd_params['kernel'], fwd_params['bias'], \
+        fwd_params['recurrent']
+    kb, bb, rb = bwd_params['kernel'], bwd_params['bias'], \
+        bwd_params['recurrent']
+    batch, seqlen, _ = xs.shape
     out = torch.empty((batch, seqlen, 2 * hidden), dtype=torch.float32,
                       device=xs.device)
-    rec_f, rec_b = fwd_params['recurrent'], bwd_params['recurrent']
-    _build.require_cuda('bidirectional_lstm', zx_f, zx_b, rec_f, rec_b, out)
+    _build.require_cuda('bidirectional_lstm', xs, kf, bf, rf, kb, bb, rb, out)
+    p = _build.ptr
     code = _lib().pp_lstm_seq(
-        _build.ptr(zx_f), _build.ptr(zx_b), _build.ptr(rec_f),
-        _build.ptr(rec_b), _build.ptr(out), None, batch, seqlen, hidden, 2,
-        _build.stream(xs.device))
+        p(xs), p(kf), p(bf), p(rf), p(kb), p(bb), p(rb), p(out), batch,
+        seqlen, hidden, _build.stream(xs.device))
     _build.check(code, 'bidirectional_lstm')
     launches['bidirectional_lstm'] += 1
     return out

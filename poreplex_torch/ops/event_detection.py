@@ -5,8 +5,10 @@ poreplex-tpu's ``ops/event_detection.py``:
   mean-centred signal, the sums added in the JAX package's order
   (``ops.f32``) so both devices and the JAX package share their bits;
 * the dual short/long peak-detector state machine: ``detect_peaks`` is its
-  plain version, a loop over time on [B] tensors that the CUDA kernel in
-  ``kernels/event_detection.py`` is held against;
+  plain version, two loops over time on [B] tensors (the short detector,
+  then the long one from its dominating stream, as the CUDA kernel in
+  ``kernels/event_detection.py`` splits them) that the kernel is held
+  against;
 * peak compaction by binary search on the running count, and per-event
   mean and stdv from the cumulative sums.
 """
@@ -110,40 +112,69 @@ def _detector_step(state, tval, i, lengths, threshold, window_length,
     return state, emitted, dominating, new_pp
 
 
+def _fresh(batch, dev):
+    return (torch.zeros(batch, dtype=torch.int32, device=dev),
+            torch.full((batch,), -1, dtype=torch.int32, device=dev),
+            torch.full((batch,), F32_MAX, dtype=torch.float32, device=dev),
+            torch.zeros(batch, dtype=torch.bool, device=dev))
+
+
+def short_pass(tstat1, lengths, threshold1, window_length1, peak_height,
+               steps):
+    """The short detector alone over frames [0, steps): (peaks_short,
+    dominating, dom_pos), each [B, T]. It reads nothing of the long
+    detector."""
+    batch, seqlen = tstat1.shape
+    em_s = torch.full((batch, seqlen), -1, dtype=torch.int32,
+                      device=tstat1.device)
+    dom = torch.zeros((batch, seqlen), dtype=torch.bool, device=tstat1.device)
+    dom_pos = torch.full_like(em_s, -1)
+    state = _fresh(batch, tstat1.device)
+    for i in range(steps):
+        state, em_s[:, i], dom[:, i], dom_pos[:, i] = _detector_step(
+            state, tstat1[:, i], i, lengths, threshold1, window_length1,
+            peak_height)
+    return em_s, dom, dom_pos
+
+
+def long_pass(tstat2, lengths, dom, dom_pos, threshold2, window_length1,
+              window_length2, peak_height, steps):
+    """The long detector over frames [0, steps), given the short one's
+    dominating flag and position of each frame: while the short detector
+    dominates it resets the long one and masks it to dom_pos +
+    window_length1, before the long one's own step (event_detection.c
+    :169-179). Returns peaks_long [B, T]."""
+    batch, seqlen = tstat2.shape
+    em_l = torch.full((batch, seqlen), -1, dtype=torch.int32,
+                      device=tstat2.device)
+    state = _fresh(batch, tstat2.device)
+    for i in range(steps):
+        masked_to, peak_pos, peak_value, valid = state
+        d = dom[:, i]
+        state = (torch.where(d, dom_pos[:, i] + window_length1, masked_to),
+                 torch.where(d, -1, peak_pos),
+                 torch.where(d, F32_MAX, peak_value),
+                 valid & ~d)
+        state, em_l[:, i], _, _ = _detector_step(
+            state, tstat2[:, i], i, lengths, threshold2, window_length2,
+            peak_height)
+    return em_l
+
+
 def detect_peaks(tstat1, tstat2, lengths, threshold1, threshold2,
                  window_length1, window_length2, peak_height):
     """The dual detector: (peaks_short [B, T], peaks_long [B, T]) int32,
-    the emitted peak position or -1 at each frame. The short detector,
-    while it rides a peak over threshold1, resets the long one and masks
-    it to dom_pos + window_length1 before the long one's own step
-    (event_detection.c:169-179). The loop ends at the longest length:
-    frames past a lane's length emit -1."""
-    batch, seqlen = tstat1.shape
-    dev = tstat1.device
+    the emitted peak position or -1 at each frame, in the kernel's two
+    passes: the short detector over every frame, then the long one from
+    the short one's dominating stream. Both loops end at the longest
+    length: frames past a lane's length emit -1."""
     lengths = lengths.to(torch.int32)
-
-    def fresh():
-        return (torch.zeros(batch, dtype=torch.int32, device=dev),
-                torch.full((batch,), -1, dtype=torch.int32, device=dev),
-                torch.full((batch,), F32_MAX, dtype=torch.float32, device=dev),
-                torch.zeros(batch, dtype=torch.bool, device=dev))
-
-    em_s = torch.full((batch, seqlen), -1, dtype=torch.int32, device=dev)
-    em_l = torch.full_like(em_s, -1)
-    short, long_ = fresh(), fresh()
+    batch, seqlen = tstat1.shape
     steps = min(seqlen, int(lengths.max())) if batch else 0
-    for i in range(steps):
-        short, em_s[:, i], dom, dom_pos = _detector_step(
-            short, tstat1[:, i], i, lengths, threshold1, window_length1,
-            peak_height)
-        masked_to, peak_pos, peak_value, valid = long_
-        long_ = (torch.where(dom, dom_pos + window_length1, masked_to),
-                 torch.where(dom, -1, peak_pos),
-                 torch.where(dom, F32_MAX, peak_value),
-                 valid & ~dom)
-        long_, em_l[:, i], _, _ = _detector_step(
-            long_, tstat2[:, i], i, lengths, threshold2, window_length2,
-            peak_height)
+    em_s, dom, dom_pos = short_pass(tstat1, lengths, threshold1,
+                                    window_length1, peak_height, steps)
+    em_l = long_pass(tstat2, lengths, dom, dom_pos, threshold2,
+                     window_length1, window_length2, peak_height, steps)
     return em_s, em_l
 
 

@@ -95,6 +95,35 @@ def test_peaks_equal_xla_and_pallas(params, seed):
     assert torch.equal(ks, ps) and torch.equal(kl, pl)
 
 
+@pytest.mark.parametrize('params', [PRESET, CSUPPORT],
+                         ids=['preset', 'csupport'])
+def test_short_detector_ignores_tstat2(params):
+    """The long detector's t-statistics never reach the short detector, on
+    the JAX op and on the port's plain version: the one-way coupling that
+    lets the kernel run the two detectors as separate chains."""
+    rng = np.random.RandomState(3)
+    sigs = [steppy(rng, 25 + 9 * k, (20, 200) if params is CSUPPORT
+                   else (8, 90)) for k in range(4)]
+    x, lens = padded(sigs, width=2048)
+    t1, t2 = tstats(x, lens, params)
+    t2_other = t2 * torch.from_numpy(
+        rng.uniform(0.0, 3.0, t2.shape).astype(np.float32))
+    args = (params['threshold1'], params['threshold2'],
+            params['window_length1'], params['window_length2'],
+            params['peak_height'])
+    lt = torch.from_numpy(lens)
+    ps, pl = ted.detect_peaks(t1, t2, lt, *args)
+    ps2, pl2 = ted.detect_peaks(t1, t2_other, lt, *args)
+    assert int((ps >= 0).sum()) > 10
+    assert torch.equal(ps, ps2) and not torch.equal(pl, pl2)
+    j1, jl = jnp.asarray(t1.numpy()), jnp.asarray(lens)
+    ref = jed.detect_peaks(j1, jnp.asarray(t2.numpy()), jl, *args)
+    ref2 = jed.detect_peaks(j1, jnp.asarray(t2_other.numpy()), jl, *args)
+    np.testing.assert_array_equal(np.asarray(ref[0]), np.asarray(ref2[0]))
+    np.testing.assert_array_equal(np.asarray(ref[0]), ps.numpy())
+    np.testing.assert_array_equal(np.asarray(ref2[1]), pl2.numpy())
+
+
 def csupport_signal():
     """The signal on which tests/test_reference_c_parity.py holds the JAX
     op to the reference C at the csupport defaults."""

@@ -25,7 +25,8 @@ def port_modules():
 
 
 def port_sources():
-    return sorted(PACKAGE.rglob('*.py')) + [REPO / 'chip_smoke.py']
+    return sorted(PACKAGE.rglob('*.py')) + [REPO / 'chip_smoke.py',
+                                            REPO / 'kernel_study.py']
 
 
 def test_importing_every_module_loads_no_jax():

@@ -105,6 +105,18 @@ def test_stacked_kernel_takes_width_one_only():
         klstm.lstm2_stacked(p1, p2, torch.empty(2, 5, 2, **meta))
 
 
+def test_bilstm_kernel_takes_width_one_only():
+    """The BiLSTM kernel folds a width-1 projection of both directions;
+    its wrapper refuses a wider input before any launch (a 'meta' tensor
+    stands for the card's)."""
+    meta = dict(device='meta', dtype=torch.float32)
+    p = {'kernel': torch.empty(3, 192, **meta),
+         'recurrent': torch.empty(48, 192, **meta),
+         'bias': torch.empty(192, **meta)}
+    with pytest.raises(ValueError, match='input width 1, not 3'):
+        klstm.bidirectional_lstm(p, p, torch.empty(2, 5, 3, **meta))
+
+
 def test_reverse_lstm_matches_xla():
     rng = np.random.RandomState(8)
     p = random_params(rng, 3, 16)
