@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Reads the loops of the port's CUDA kernels from their SASS.
+
+    python3 kernel_sass.py [--out build/kernel_sass]
+
+Builds each source of ``poreplex_torch/csrc`` as the package does at first
+use, writes its SASS (``cuobjdump -sass``) to ``<out>/<source>.sass`` and
+prints, for every kernel, its innermost loops: their first and last
+address, their instructions, their float compares (``FSETP``: a step of
+the peak detector's state machine, or a gate's range check) and the
+branches inside them other than the back edge. A loop that compares floats
+and holds no other branch runs converged whatever each lane's data: the
+peak detector's two frame loops are such loops. The loops also go to
+``<out>/kernel_sass.json``. Needs the CUDA toolkit, not a card.
+"""
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+FUNCTION = re.compile(r'Function : (\S+)\n(.*?)(?=Function :|\Z)', re.S)
+INSTRUCTION = re.compile(r'^\s*/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;', re.M)
+BRANCH = re.compile(r'\bBRA(?:\.\S+)?\b.*?(0x[0-9a-f]+)\s*$')
+
+
+def instructions(body):
+    """[(address, text)] of one function's SASS listing."""
+    return [(int(a, 16), text) for a, text in INSTRUCTION.findall(body)]
+
+
+def innermost_loops(code):
+    """The loops of [(address, text)] that hold no other loop: each a dict
+    of its first and last address (the back edge), its instructions, its
+    float compares and its branches other than the back edge."""
+    targets = {}
+    for address, text in code:
+        m = BRANCH.search(text)
+        if m:
+            targets[address] = int(m.group(1), 16)
+    loops = sorted((t, a) for a, t in targets.items() if t < a)
+    found = []
+    for start, end in loops:
+        if any((s, e) != (start, end) and start <= s and e <= end
+               for s, e in loops):
+            continue
+        body = [(a, text) for a, text in code if start <= a <= end]
+        found.append(dict(
+            first=hex(start), last=hex(end), instructions=len(body),
+            float_compares=sum('FSETP' in text for _, text in body),
+            inner_branches=sum(a in targets for a, _ in body if a != end)))
+    return found
+
+
+def read(text):
+    """{kernel: innermost loops} of a cuobjdump -sass listing."""
+    return {name: innermost_loops(instructions(body))
+            for name, body in FUNCTION.findall(text)}
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument('--out', default=os.path.join('build',
+                                                      'kernel_sass'))
+    opts = parser.parse_args()
+    from poreplex_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), 'cuobjdump')
+    os.makedirs(opts.out, exist_ok=True)
+    result = {}
+    for source, report in _build.build_all().items():
+        text = subprocess.run([tool, '-sass', _build.library_path(source)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        name = os.path.splitext(source)[0]
+        with open(os.path.join(opts.out, name + '.sass'), 'w') as f:
+            f.write(text)
+        for line in report.splitlines():
+            if 'registers' in line or 'spill' in line:
+                print('{}: {}'.format(source, line.strip()))
+        for kernel, loops in read(text).items():
+            result[kernel] = loops
+            print(kernel)
+            for loop in loops:
+                print('  loop {first}..{last}: {instructions} instructions, '
+                      '{float_compares} FSETP, {inner_branches} branches '
+                      'besides the back edge'.format(**loop))
+    with open(os.path.join(opts.out, 'kernel_sass.json'), 'w') as f:
+        json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

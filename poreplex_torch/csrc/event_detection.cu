@@ -242,16 +242,14 @@ __device__ __forceinline__ void flush(int* __restrict__ dst, const int* src,
 // runs tile p, the long warp tile p - 1, the copy warps stage t1 of tile
 // p + 1 and t2 of tile p and write em_s of tile p - 1 and em_l of tile
 // p - 2. Tiles past the block's longest read are written -1 without a
-// step. With CYCLES, lane 0 of each warp writes to cycles[(block * WARPS +
-// warp) * 2 ..] the clock64() cycles of the phase loop and those of its
-// own work in it, barrier waits excluded.
-template <bool VEC, bool CYCLES>
+// step.
+template <bool VEC>
 __global__ void __launch_bounds__(WARPS * 32, 1)
 peaks_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
              const int* __restrict__ lengths, int* __restrict__ em_s,
              int* __restrict__ em_l, int B, int T, float threshold1,
              float threshold2, int window_length1, int window_length2,
-             float peak_height, long long* __restrict__ cycles) {
+             float peak_height) {
     extern __shared__ __align__(16) int smem[];
     const Tiles s = tiles(smem);
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -272,11 +270,7 @@ peaks_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
     __syncthreads();
 
     Detector d = fresh();
-    long long start = 0, busy = 0;
-    if (CYCLES) start = clock64();
     for (int p = 0; p < ntiles + 2; ++p) {
-        long long t0 = 0;
-        if (CYCLES) t0 = clock64();
         if (warp == SHORT_WARP && p < valid_tiles) {
             const int b = buffer(p) + lane * STRIDE, f0 = p * TILE;
 #pragma unroll 4
@@ -327,13 +321,7 @@ peaks_kernel(const float* __restrict__ t1, const float* __restrict__ t2,
                                          row0, nrows, T, (p - 2) * TILE, ct);
             cp_async_wait_all();
         }
-        if (CYCLES) busy += clock64() - t0;
         __syncthreads();
-    }
-    if (CYCLES && lane == 0) {
-        long long* out = cycles + ((size_t)blockIdx.x * WARPS + warp) * 2;
-        out[0] = clock64() - start;
-        out[1] = busy;
     }
 }
 
@@ -342,24 +330,6 @@ bool aligned16(const void* p) {
 }
 
 int blocks(int B) { return (B + ROWS - 1) / ROWS; }
-
-template <bool CYCLES>
-int launch_peaks(const float* t1, const float* t2, const int* lengths,
-                 int* em_s, int* em_l, int B, int T, float threshold1,
-                 float threshold2, int window_length1, int window_length2,
-                 float peak_height, long long* cycles, cudaStream_t stream) {
-    const bool vec = T % 4 == 0 && aligned16(t1) && aligned16(t2) &&
-                     aligned16(em_s) && aligned16(em_l);
-    auto kernel =
-        vec ? &peaks_kernel<true, CYCLES> : &peaks_kernel<false, CYCLES>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks(B), WARPS * 32, SMEM_BYTES, stream>>>(
-        t1, t2, lengths, em_s, em_l, B, T, threshold1, threshold2,
-        window_length1, window_length2, peak_height, cycles);
-    return (int)cudaGetLastError();
-}
 
 }  // namespace
 
@@ -371,9 +341,16 @@ int pp_detect_peaks(const float* t1, const float* t2, const int* lengths,
                     float threshold2, int window_length1, int window_length2,
                     float peak_height, void* stream) {
     if (B <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-    return launch_peaks<false>(t1, t2, lengths, em_s, em_l, B, T, threshold1,
-                               threshold2, window_length1, window_length2,
-                               peak_height, nullptr, (cudaStream_t)stream);
+    const bool vec = T % 4 == 0 && aligned16(t1) && aligned16(t2) &&
+                     aligned16(em_s) && aligned16(em_l);
+    auto kernel = vec ? &peaks_kernel<true> : &peaks_kernel<false>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks(B), WARPS * 32, SMEM_BYTES, (cudaStream_t)stream>>>(
+        t1, t2, lengths, em_s, em_l, B, T, threshold1, threshold2,
+        window_length1, window_length2, peak_height);
+    return (int)cudaGetLastError();
 }
 
 // The launch for B reads: shape = {reads per block, threads per block,

@@ -26,7 +26,7 @@ def port_modules():
 
 def port_sources():
     return sorted(PACKAGE.rglob('*.py')) + [REPO / 'chip_smoke.py',
-                                            REPO / 'kernel_study.py']
+                                            REPO / 'kernel_sass.py']
 
 
 def test_importing_every_module_loads_no_jax():

@@ -1,0 +1,60 @@
+"""kernel_sass.py finds a kernel's innermost loops in a cuobjdump -sass
+listing and counts the branches inside each besides its back edge. The
+listing here is written by hand in cuobjdump's layout; the tool reads the
+real one where the CUDA toolkit is installed."""
+
+import pytest
+
+import kernel_sass
+
+LISTING = """
+\t\tFunction : _Z12peaks_kernelILb1EEvPKf
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+                                                                   /* 0x000e620000000800 */
+        /*0010*/                   LDS.128 R4, [R2] ;              /* 0x0000000000007919 */
+        /*0020*/                   FSETP.GT.AND P0, PT, R4, R5, PT ; /* 0x0 */
+        /*0030*/                   FSEL R6, R4, R5, P0 ;           /* 0x0 */
+        /*0040*/              @!P1 BRA 0x10 ;                      /* 0xfffffffc00789947 */
+        /*0050*/                   ISETP.GE.AND P2, PT, R0, R3, PT ; /* 0x0 */
+        /*0060*/               @P2 BRA 0x80 ;                      /* 0x0 */
+        /*0070*/                   STS [R2], R6 ;                  /* 0x0 */
+        /*0080*/              @!P0 BRA P1, 0x50 ;                  /* 0x0 */
+        /*0090*/                   BRA 0xa0 ;                      /* 0x0 */
+        /*00a0*/                   EXIT ;                          /* 0x0 */
+        /*00b0*/                   BRA 0xb0;                       /* 0x0 */
+\t\tFunction : _Z11copy_kernelPf
+        /*0000*/                   IADD3 R0, R0, 0x1, RZ ;         /* 0x0 */
+        /*0010*/               @P0 BRA 0x0 ;                       /* 0x0 */
+        /*0020*/                   EXIT ;                          /* 0x0 */
+"""
+
+
+def test_reads_innermost_loops_and_their_branches():
+    loops = kernel_sass.read(LISTING)
+    assert list(loops) == ['_Z12peaks_kernelILb1EEvPKf', '_Z11copy_kernelPf']
+    assert loops['_Z12peaks_kernelILb1EEvPKf'] == [
+        dict(first='0x10', last='0x40', instructions=4, float_compares=1,
+             inner_branches=0),
+        dict(first='0x50', last='0x80', instructions=4, float_compares=0,
+             inner_branches=1)]
+    assert loops['_Z11copy_kernelPf'] == [
+        dict(first='0x0', last='0x10', instructions=2, float_compares=0,
+             inner_branches=0)]
+
+
+@pytest.mark.parametrize('text,target', [
+    ('@!P1 BRA 0x3f50', 0x3f50), ('@!P0 BRA P1, 0x64c0', 0x64c0),
+    ('BRA 0x88c0', 0x88c0), ('BRA.U !UP0, 0x1c0', 0x1c0),
+    ('BRA.DIV UR4, 0x2a0', 0x2a0)])
+def test_branch_targets(text, target):
+    m = kernel_sass.BRANCH.search(text)
+    assert m and int(m.group(1), 16) == target
+
+
+def test_a_loop_that_holds_another_is_not_innermost():
+    code = [(0x0, 'NOP'), (0x10, 'FSETP.GT.AND P0, PT, R1, R2, PT'),
+            (0x20, '@P0 BRA 0x10'), (0x30, '@P1 BRA 0x0')]
+    assert kernel_sass.innermost_loops(code) == [
+        dict(first='0x10', last='0x20', instructions=2, float_compares=1,
+             inner_branches=0)]
