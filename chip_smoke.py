@@ -12,14 +12,18 @@
    [37, 2002] (against the plain version on CPU copies of the inputs;
    the last one's length is not a multiple of 4), the poly(A)
    DP at [512, 512] and [512, 1024], the unsplit Viterbi at [1024, 1024]
-   and [1024, 128]; the three LSTMs also at ragged batches of 37 reads and
-   1 read. LSTM outputs within 5e-5 absolute; Viterbi extents and paths,
-   peak emissions and DP intervals exactly equal; Viterbi logp within 1e-5
-   relative. Times the kernel, the plain version and, where one PyTorch
+   and [1024, 128] and, after step 3, [64, 4096]; the three LSTMs and the
+   Viterbi extents also at ragged batches of 37 reads and 1 read; after
+   step 3 both Viterbi entries on an HMM whose states 1 and 2 tie on
+   every frame (K = 1 and 2, [37, 1000]). LSTM outputs within 5e-5
+   absolute; Viterbi extents and paths, peak emissions and DP intervals
+   exactly equal; Viterbi logp within 1e-5 relative. Times the kernel
+   (CUDA events, enqueued behind a device sleep so the host's launch
+   overhead is not in the time), the plain version and, where one PyTorch
    call computes the same function, that call (torch.nn.LSTM with the
-   converted weights); an LSTM line also gives the time per step and the
-   peak detector's the time per frame, both with the launch (reads per
-   block, threads, blocks);
+   converted weights); the LSTM lines also give the time per step and the
+   peak detector's and the Viterbis' the time per frame, each with the
+   launch (reads per block, threads, blocks);
 3. simulates 512 reads (basecalls included, poly(A) tails of 500 to
    20,000 samples, transcripts of 9,000 to 90,000 raw samples, one in 16
    made of two molecules) from a fixed seed and runs them through
@@ -100,10 +104,13 @@ def card_line():
 
 
 def time_ms(fn, reps, warmup=1):
-    """Mean device time of fn() over reps launches, by CUDA events."""
+    """Mean device time of fn() over reps launches, by CUDA events: the
+    launches are enqueued behind a device sleep of some 5 ms, so the
+    host's time to enqueue them is not in the time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -256,48 +263,111 @@ def viterbi_inputs(rng, T):
     return x, lengths.astype(np.int32)
 
 
-def viterbi_frame_ops(model):
+def viterbi_frame_ops(nstates, ncomp):
     """Per valid frame and read: emission (5 ops per component, then the
     shift, exps, sum and log per state) and the transition max with its
     first-occurrence compare and the score update."""
-    nstates, ncomp = model.mus.shape
     return (nstates * ncomp * 5 + nstates * (4 + 3 * ncomp) +
             3 * nstates * nstates + nstates)
 
 
-def check_viterbi(engine, rng):
+VITERBI_REPLACES = {
+    'viterbi_extents': 'poreplex_tpu/ops/pallas_viterbi.py:232',
+    'viterbi': 'poreplex_tpu/ops/pallas_viterbi.py:292',
+}
+
+
+def viterbi_row(name, x, lengths, params):
+    """The Viterbi entry ``name`` (viterbi_extents or viterbi) on x [B, T]
+    against its plain version: extents, present and paths equal, logp
+    within LOGP_RTOL relative."""
     from poreplex_torch.kernels import viterbi as kvit
     from poreplex_torch.ops import viterbi as vit_ops
-    m = engine.segmodel
+    batch, seqlen = x.shape
+    nstates, ncomp = params[2].shape
+    kernel = lambda: getattr(kvit, name)(x, lengths, *params)
+    got = kernel()
+    ref, plain_ms = timed(lambda: getattr(vit_ops, name)(x, lengths, *params))
+    for a, b in zip(got[:-1], ref[:-1]):
+        bad = int((a != b).sum())
+        if bad:
+            raise AssertionError('{} at {}: {} entries differ from the plain '
+                                 'version'.format(name, [batch, seqlen], bad))
+    logp_err = (got[-1] - ref[-1]).abs()
+    rel = float((logp_err / ref[-1].abs().clamp(min=1.0)).max())
+    if not rel <= LOGP_RTOL:
+        raise AssertionError('{} at {}: logp rel err {} > {}'.format(
+            name, [batch, seqlen], rel, LOGP_RTOL))
+    # x and the lengths, then the extents (first, last, present) or the
+    # int64 path, and logp
+    out = (batch * nstates * (8 + 8 + 1) if name == 'viterbi_extents'
+           else batch * seqlen * 8)
+    return dict(
+        name=name, route='cuda', source='poreplex_torch/csrc/viterbi.cu',
+        replaces=VITERBI_REPLACES[name], shape=[batch, seqlen],
+        max_abs_err=float(logp_err.max()), ms=time_ms(kernel, reps=5),
+        plain_ms=plain_ms, library_ms=None,
+        flops=int(lengths.clamp(max=seqlen).sum()) *
+        viterbi_frame_ops(nstates, ncomp),
+        nbytes=x.numel() * 4 + batch * 4 + out + batch * 4,
+        steps=seqlen, step_unit='frame', launch=kvit.launch_shape(batch))
+
+
+def check_viterbi(engine, rng):
+    """The segmentation Viterbi extents at the main path's shape and at the
+    ragged batches RAGGED."""
     xs, lens = viterbi_inputs(rng, engine.seg_frames)
     x = torch.as_tensor(xs, device=DEVICE)
     lengths = torch.as_tensor(lens, device=DEVICE)
-    kernel = lambda: kvit.viterbi_extents(x, lengths, *m.params())
-    plain = lambda: vit_ops.viterbi_extents(x, lengths, *m.params())
-    got = kernel()
-    ref = plain()
-    torch.cuda.synchronize()
-    for name, a, b in zip(('first', 'last', 'present'), got[:3], ref[:3]):
-        bad = int((a != b).sum())
-        if bad:
-            raise AssertionError('viterbi_extents: {} differs in {} entries'
-                                 .format(name, bad))
-    logp_err = (got[3] - ref[3]).abs()
-    rel = float((logp_err / ref[3].abs().clamp(min=1.0)).max())
-    if not rel <= LOGP_RTOL:
-        raise AssertionError('viterbi_extents: logp rel err {} > {}'.format(
-            rel, LOGP_RTOL))
-    frames = int(lens.sum())
-    return [dict(
-        name='viterbi_extents', route='cuda',
-        source='poreplex_torch/csrc/viterbi.cu',
-        replaces='poreplex_tpu/ops/pallas_viterbi.py:232',
-        shape=list(xs.shape), max_abs_err=float(logp_err.max()),
-        ms=time_ms(kernel, reps=5),
-        plain_ms=time_ms(plain, reps=1), library_ms=None,
-        flops=frames * viterbi_frame_ops(m),
-        nbytes=x.numel() * 4 + lengths.numel() * 4 +
-        BATCH * m.nstates * (8 + 8 + 1) + BATCH * 4)]
+    return [viterbi_row('viterbi_extents', x[:batch], lengths[:batch],
+                        engine.segmodel.params())
+            for batch in (BATCH,) + RAGGED]
+
+
+def tie_hmm(ncomp):
+    """A 6-state HMM with ncomp mixture components whose states 1 and 2
+    have equal start probabilities, emissions and transitions (out of and
+    into each), so their scores are equal on every frame and every argmax
+    over predecessors ties between them: the lower state must win, and
+    state 2 never appears in a path."""
+    start = np.array([0.4, 0.2, 0.2, 0.1, 0.05, 0.05])
+    trans = np.full((6, 6), 0.02)
+    np.fill_diagonal(trans, 0.9)
+    trans[:, 2] = trans[:, 1]
+    trans[2, :] = trans[1, :]
+    trans /= trans.sum(axis=1, keepdims=True)
+    mus = np.array([[70, 60], [100, 90], [100, 90], [80, 65], [110, 105],
+                    [95, 85]])[:, :ncomp]
+    sigmas = np.array([[3, 4], [4, 5], [4, 5], [7, 3], [2.5, 3],
+                       [10, 12]])[:, :ncomp]
+    logws = np.log(np.full((6, ncomp), 1.0 / ncomp))
+    return [torch.as_tensor(a.astype(np.float32), device=DEVICE)
+            for a in (np.log(start), np.log(trans), mus, sigmas, logws)]
+
+
+def check_viterbi_ties(rng, batch=37, seqlen=1000):
+    """Both Viterbi entries on the tie HMM, K = 1 and 2, against their
+    plain versions, on signal at its states' levels (lengths from 1 to
+    seqlen; seqlen is not a multiple of the kernels' tile)."""
+    from poreplex_torch.kernels import viterbi as kvit
+    rows = []
+    for ncomp in (1, 2):
+        params = tie_hmm(ncomp)
+        levels = rng.choice(params[2][:, 0].cpu().numpy(),
+                            (batch, seqlen // 20 + 1))
+        xs = (np.repeat(levels, 20, axis=1)[:, :seqlen] +
+              rng.normal(0, 3.0, (batch, seqlen))).astype(np.float32)
+        lens = rng.integers(1, seqlen + 1, batch).astype(np.int32)
+        lens[:2] = (1, seqlen)
+        x = torch.as_tensor(xs, device=DEVICE)
+        lengths = torch.as_tensor(lens, device=DEVICE)
+        for name in ('viterbi_extents', 'viterbi'):
+            rows.append(viterbi_row(name, x, lengths, params))
+        path = kvit.viterbi(x, lengths, *params)[0]
+        if bool((path == 2).any()) or not bool((path == 1).any()):
+            raise AssertionError('tie HMM, K = {}: a tie did not go to the '
+                                 'lower state'.format(ncomp))
+    return rows
 
 
 def polya_windows(rng, rows, T):
@@ -400,38 +470,20 @@ def check_dp(rng):
     return rows
 
 
-def check_unsplit_viterbi(engine, rng):
-    """The full-path Viterbi of the unsplit HMM on event-mean windows."""
-    from poreplex_torch.kernels import viterbi as kvit
-    from poreplex_torch.ops import viterbi as vit_ops
+def check_unsplit_viterbi(unsplitmodel, rng, shapes):
+    """The full-path Viterbi of the unsplit HMM on event-mean windows of
+    each [R, T] of shapes."""
     from poreplex_torch.simulate import STATE_LEVELS
-    m = engine.unsplitmodel
     means = [mu for mu, _ in STATE_LEVELS.values()]
     rows = []
-    for R, T in ((1024, 1024), (1024, 128)):
+    for R, T in shapes:
         lens = rng.integers(T // 2, T + 1, R).astype(np.int32)
         levels = rng.choice(means, (R, T // 8 + 1))
         xs = (np.repeat(levels, 8, axis=1)[:, :T] +
               rng.normal(0, 3.0, (R, T))).astype(np.float32)
-        x = torch.as_tensor(xs, device=DEVICE)
-        lengths = torch.as_tensor(lens, device=DEVICE)
-        kernel = lambda: kvit.viterbi(x, lengths, *m.params())
-        got = kernel()
-        ref, plain_ms = timed(lambda: vit_ops.viterbi(x, lengths,
-                                                      *m.params()))
-        row = exact_row(
-            'viterbi', 'poreplex_torch/csrc/viterbi.cu',
-            'poreplex_tpu/ops/pallas_viterbi.py:292', [R, T], got[:1],
-            ref[:1], kernel, plain_ms,
-            flops=int(lens.sum()) * viterbi_frame_ops(m),
-            nbytes=R * T * 4 * 2 + R * 8)
-        logp_err = (got[1] - ref[1]).abs()
-        rel = float((logp_err / ref[1].abs().clamp(min=1.0)).max())
-        if not rel <= LOGP_RTOL:
-            raise AssertionError('viterbi: logp rel err {} > {}'.format(
-                rel, LOGP_RTOL))
-        row['max_abs_err'] = float(logp_err.max())
-        rows.append(row)
+        rows.append(viterbi_row('viterbi', torch.as_tensor(xs, device=DEVICE),
+                                torch.as_tensor(lens, device=DEVICE),
+                                unsplitmodel.params()))
     return rows
 
 
@@ -812,7 +864,9 @@ def main():
             rows = (check_lstms(engine, rng) + check_viterbi(engine, rng) +
                     check_peaks(rng, config['polya_dwell'],
                                 ((BATCH, 8192), (8, 16384))) +
-                    check_dp(rng) + check_unsplit_viterbi(engine, rng))
+                    check_dp(rng) +
+                    check_unsplit_viterbi(engine.unsplitmodel, rng,
+                                          ((1024, 1024), (1024, 128))))
         del engine
         for row in rows:
             log(kernel_line(row))
@@ -839,11 +893,16 @@ def main():
         # with a length that is not a multiple of 4 (the kernel's 4-byte
         # copies), held against the plain version on the CPU after the
         # main path (whose host work it would otherwise precede), from a
-        # generator of their own
+        # generator of their own; so are a larger unsplit bucket and the
+        # Viterbi tie case
         with torch.inference_mode():
             wide = check_peaks(np.random.default_rng(SEED + 1),
                                config['polya_dwell'],
                                ((64, 32768), (37, 2002)), 'cpu')
+            rng2 = np.random.default_rng(SEED + 2)
+            wide += (check_unsplit_viterbi(analyzer.engine.unsplitmodel, rng2,
+                                           ((64, 4096),)) +
+                     check_viterbi_ties(rng2))
         for row in wide:
             log(kernel_line(row))
         rows += wide

@@ -7,10 +7,12 @@ Builds each source of ``poreplex_torch/csrc`` as the package does at first
 use, writes its SASS (``cuobjdump -sass``) to ``<out>/<source>.sass`` and
 prints, for every kernel, its innermost loops: their first and last
 address, their instructions, their float compares (``FSETP``: a step of
-the peak detector's state machine, or a gate's range check) and the
-branches inside them other than the back edge. A loop that compares floats
-and holds no other branch runs converged whatever each lane's data: the
-peak detector's two frame loops are such loops. The loops also go to
+the peak detector's state machine, or a gate's range check), the branches
+inside them other than the back edge and their calls (``CALL``: an IEEE
+division's slow path is one). A loop that compares floats and holds no
+other branch runs converged whatever each lane's data: the peak
+detector's two frame loops and the Viterbi kernels' forward and backtrace
+loops are such loops, and hold no call. The loops also go to
 ``<out>/kernel_sass.json``. Needs the CUDA toolkit, not a card.
 """
 
@@ -24,6 +26,7 @@ import sys
 FUNCTION = re.compile(r'Function : (\S+)\n(.*?)(?=Function :|\Z)', re.S)
 INSTRUCTION = re.compile(r'^\s*/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;', re.M)
 BRANCH = re.compile(r'\bBRA(?:\.\S+)?\b.*?(0x[0-9a-f]+)\s*$')
+CALL = re.compile(r'\bCALL\b')
 
 
 def instructions(body):
@@ -34,7 +37,8 @@ def instructions(body):
 def innermost_loops(code):
     """The loops of [(address, text)] that hold no other loop: each a dict
     of its first and last address (the back edge), its instructions, its
-    float compares and its branches other than the back edge."""
+    float compares, its branches other than the back edge and its
+    calls."""
     targets = {}
     for address, text in code:
         m = BRANCH.search(text)
@@ -50,7 +54,8 @@ def innermost_loops(code):
         found.append(dict(
             first=hex(start), last=hex(end), instructions=len(body),
             float_compares=sum('FSETP' in text for _, text in body),
-            inner_branches=sum(a in targets for a, _ in body if a != end)))
+            inner_branches=sum(a in targets for a, _ in body if a != end),
+            calls=sum(bool(CALL.search(text)) for _, text in body)))
     return found
 
 
@@ -85,7 +90,7 @@ def main():
             for loop in loops:
                 print('  loop {first}..{last}: {instructions} instructions, '
                       '{float_compares} FSETP, {inner_branches} branches '
-                      'besides the back edge'.format(**loop))
+                      'besides the back edge, {calls} calls'.format(**loop))
     with open(os.path.join(opts.out, 'kernel_sass.json'), 'w') as f:
         json.dump(result, f, indent=1)
     return 0

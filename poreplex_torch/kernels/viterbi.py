@@ -22,6 +22,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     'pp_viterbi_extents': [_P] * 11 + [_I, _I, _I, _I, _P],
     'pp_viterbi_path': [_P] * 10 + [_I, _I, _I, _I, _P],
+    'pp_viterbi_launch_shape': [_I, _P],
 }
 STATES = (6,)
 COMPONENTS = (1, 2)
@@ -31,9 +32,19 @@ def _lib():
     return _build.library('viterbi.cu', _SIGNATURES)
 
 
+def launch_shape(batch):
+    """(reads per block, threads per block, blocks) of either kernel for
+    ``batch`` reads."""
+    shape = (ctypes.c_int * 3)()
+    _build.check(_lib().pp_viterbi_launch_shape(batch,
+                                                ctypes.addressof(shape)),
+                 'viterbi')
+    return tuple(shape)
+
+
 def _inputs(name, x, lengths, log_start, log_trans, mus, sigmas, logws):
-    """Checks the wrappers' inputs; returns the kernel's (x [T, B], int32
-    lengths, emission constants, backpointer scratch [T, B])."""
+    """Checks the wrappers' inputs; returns the kernel's (x [B, T], int32
+    lengths, emission constants, backpointer scratch [B, T])."""
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError('{}: x must be float32 [B, T]'.format(name))
     batch, seqlen = x.shape
@@ -52,9 +63,9 @@ def _inputs(name, x, lengths, log_start, log_trans, mus, sigmas, logws):
     for t in (log_start, log_trans, mus, sigmas, logws):
         if t.dtype != torch.float32:
             raise ValueError('{}: parameters must be float32'.format(name))
-    return (x.t().contiguous(), lengths.to(torch.int32).contiguous(),
+    return (x.contiguous(), lengths.to(torch.int32).contiguous(),
             vit_ops.emission_const(sigmas, logws).contiguous(),
-            torch.empty((seqlen, batch), dtype=torch.int32, device=x.device))
+            torch.empty((batch, seqlen), dtype=torch.int32, device=x.device))
 
 
 def viterbi_extents(x, lengths, log_start, log_trans, mus, sigmas, logws):
@@ -63,23 +74,22 @@ def viterbi_extents(x, lengths, log_start, log_trans, mus, sigmas, logws):
     if x.device.type == 'cpu':
         return vit_ops.viterbi_extents(x, lengths, log_start, log_trans, mus,
                                        sigmas, logws)
-    xt, lens, const, bp = _inputs('viterbi_extents', x, lengths, log_start,
+    xc, lens, const, bp = _inputs('viterbi_extents', x, lengths, log_start,
                                  log_trans, mus, sigmas, logws)
     batch, seqlen = x.shape
     nstates, ncomp = mus.shape
-    first = torch.empty((batch, nstates), dtype=torch.int32, device=x.device)
+    first = torch.empty((batch, nstates), dtype=torch.int64, device=x.device)
     last = torch.empty_like(first)
     logp = torch.empty((batch,), dtype=torch.float32, device=x.device)
-    _build.require_cuda('viterbi_extents', xt, lens, log_start, log_trans,
+    _build.require_cuda('viterbi_extents', xc, lens, log_start, log_trans,
                         mus, sigmas, const, bp, first, last, logp)
     p = _build.ptr
     code = _lib().pp_viterbi_extents(
-        p(xt), p(lens), p(log_start), p(log_trans), p(mus), p(sigmas),
+        p(xc), p(lens), p(log_start), p(log_trans), p(mus), p(sigmas),
         p(const), p(bp), p(first), p(last), p(logp), batch, seqlen, nstates,
         ncomp, _build.stream(x.device))
     _build.check(code, 'viterbi_extents')
     launches['viterbi_extents'] += 1
-    first, last = first.to(torch.int64), last.to(torch.int64)
     return first, last, last >= 0, logp
 
 
@@ -90,19 +100,19 @@ def viterbi(x, lengths, log_start, log_trans, mus, sigmas, logws):
     if x.device.type == 'cpu':
         return vit_ops.viterbi(x, lengths, log_start, log_trans, mus, sigmas,
                                logws)
-    xt, lens, const, bp = _inputs('viterbi', x, lengths, log_start, log_trans,
+    xc, lens, const, bp = _inputs('viterbi', x, lengths, log_start, log_trans,
                                  mus, sigmas, logws)
     batch, seqlen = x.shape
     nstates, ncomp = mus.shape
-    path = torch.empty((seqlen, batch), dtype=torch.int32, device=x.device)
+    path = torch.empty((batch, seqlen), dtype=torch.int64, device=x.device)
     logp = torch.empty((batch,), dtype=torch.float32, device=x.device)
-    _build.require_cuda('viterbi', xt, lens, log_start, log_trans, mus,
+    _build.require_cuda('viterbi', xc, lens, log_start, log_trans, mus,
                         sigmas, const, bp, path, logp)
     p = _build.ptr
     code = _lib().pp_viterbi_path(
-        p(xt), p(lens), p(log_start), p(log_trans), p(mus), p(sigmas),
+        p(xc), p(lens), p(log_start), p(log_trans), p(mus), p(sigmas),
         p(const), p(bp), p(path), p(logp), batch, seqlen, nstates, ncomp,
         _build.stream(x.device))
     _build.check(code, 'viterbi')
     launches['viterbi'] += 1
-    return path.t().to(torch.int64), logp
+    return path, logp

@@ -1,5 +1,6 @@
 """kernel_sass.py finds a kernel's innermost loops in a cuobjdump -sass
-listing and counts the branches inside each besides its back edge. The
+listing and counts the branches inside each besides its back edge, and
+its calls (an IEEE division's slow path is a CALL). The
 listing here is written by hand in cuobjdump's layout; the tool reads the
 real one where the CUDA toolkit is installed."""
 
@@ -27,20 +28,39 @@ LISTING = """
         /*0000*/                   IADD3 R0, R0, 0x1, RZ ;         /* 0x0 */
         /*0010*/               @P0 BRA 0x0 ;                       /* 0x0 */
         /*0020*/                   EXIT ;                          /* 0x0 */
+		Function : _Z15emission_kernelPf
+        /*0000*/                   MUFU.RCP R3, R2 ;               /* 0x0 */
+        /*0010*/                   FFMA R4, R3, R2, -1 ;           /* 0x0 */
+        /*0020*/              @!P0 CALL.REL.NOINC 0x80 ;           /* 0x0 */
+        /*0030*/                   STS [R5], R4 ;                  /* 0x0 */
+        /*0040*/               @P1 BRA 0x0 ;                       /* 0x0 */
+        /*0050*/                   EXIT ;                          /* 0x0 */
+        /*0080*/                   FCHK P0, R2, R3 ;               /* 0x0 */
+        /*0090*/                   RET.REL.NODEC R6 0x0 ;          /* 0x0 */
 """
 
 
 def test_reads_innermost_loops_and_their_branches():
     loops = kernel_sass.read(LISTING)
-    assert list(loops) == ['_Z12peaks_kernelILb1EEvPKf', '_Z11copy_kernelPf']
+    assert list(loops) == ['_Z12peaks_kernelILb1EEvPKf', '_Z11copy_kernelPf',
+                           '_Z15emission_kernelPf']
     assert loops['_Z12peaks_kernelILb1EEvPKf'] == [
         dict(first='0x10', last='0x40', instructions=4, float_compares=1,
-             inner_branches=0),
+             inner_branches=0, calls=0),
         dict(first='0x50', last='0x80', instructions=4, float_compares=0,
-             inner_branches=1)]
+             inner_branches=1, calls=0)]
     assert loops['_Z11copy_kernelPf'] == [
         dict(first='0x0', last='0x10', instructions=2, float_compares=0,
-             inner_branches=0)]
+             inner_branches=0, calls=0)]
+
+
+def test_counts_calls_in_a_loop():
+    """A call is no branch: the loop holds one call and no branch besides
+    its back edge, and the called code past the loop is not in it."""
+    loops = kernel_sass.read(LISTING)
+    assert loops['_Z15emission_kernelPf'] == [
+        dict(first='0x0', last='0x40', instructions=5, float_compares=0,
+             inner_branches=0, calls=1)]
 
 
 @pytest.mark.parametrize('text,target', [
@@ -57,4 +77,4 @@ def test_a_loop_that_holds_another_is_not_innermost():
             (0x20, '@P0 BRA 0x10'), (0x30, '@P1 BRA 0x0')]
     assert kernel_sass.innermost_loops(code) == [
         dict(first='0x10', last='0x20', instructions=2, float_compares=1,
-             inner_branches=0)]
+             inner_branches=0, calls=0)]

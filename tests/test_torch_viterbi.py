@@ -119,6 +119,100 @@ def test_tiebreak_first_occurrence():
                                rtol=LOGP_RTOL)
 
 
+def tie_hmm(ncomp):
+    """A 6-state HMM with ncomp mixture components whose states 1 and 2
+    have equal start probabilities, emissions and transitions (out of and
+    into each): their scores are equal on every frame, so every argmax
+    over predecessors that reaches them ties, and state 2 never wins."""
+    start = np.array([0.4, 0.2, 0.2, 0.1, 0.05, 0.05])
+    trans = np.full((6, 6), 0.02)
+    np.fill_diagonal(trans, 0.9)
+    trans[:, 2] = trans[:, 1]
+    trans[2, :] = trans[1, :]
+    trans /= trans.sum(axis=1, keepdims=True)
+    mus = np.array([[70, 60], [100, 90], [100, 90], [80, 65], [110, 105],
+                    [95, 85]])[:, :ncomp]
+    sigmas = np.array([[3, 4], [4, 5], [4, 5], [7, 3], [2.5, 3],
+                       [10, 12]])[:, :ncomp]
+    logws = np.log(np.full((6, ncomp), 1.0 / ncomp))
+    return [a.astype(np.float32)
+            for a in (np.log(start), np.log(trans), mus, sigmas, logws)]
+
+
+def level_signal(seed, B, T, levels, runlen=20):
+    """B reads of runs of runlen frames at the given levels plus noise,
+    with lengths 1, T and then random ones."""
+    rng = np.random.default_rng(seed)
+    lv = rng.choice(levels, (B, T // runlen + 1))
+    x = (np.repeat(lv, runlen, axis=1)[:, :T] +
+         rng.normal(0, 3.0, (B, T))).astype(np.float32)
+    lens = rng.integers(1, T + 1, B).astype(np.int32)
+    lens[:2] = (1, T)
+    return x, lens
+
+
+def check_three_ways(entry, x, lens, params):
+    """The port's entry (its plain version, on CPU tensors) against the
+    XLA op and the Pallas kernel in interpret mode: paths within each
+    read's length (the XLA op's also past it) and extents exactly equal,
+    logp within LOGP_RTOL. Returns the port's path."""
+    xt, lt = torch.from_numpy(x), torch.from_numpy(lens)
+    targs = [torch.from_numpy(a) for a in params]
+    jargs = [jnp.asarray(a) for a in params]
+    before = dict(kernels.launches)
+    got = getattr(kvit, entry)(xt, lt, *targs)
+    assert kernels.launches == before      # CPU tensors: plain version
+    path, logp = vit.viterbi(xt, lt, *targs)
+    jpath, jlogp = jvit.viterbi(jnp.asarray(x), jnp.asarray(lens), *jargs)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath))
+    pallas = getattr(pallas_viterbi, entry)(jnp.asarray(x), jnp.asarray(lens),
+                                            *jargs, interpret=True)
+    if entry == 'viterbi':
+        np.testing.assert_array_equal(got[0].numpy(), path.numpy())
+        ppath = np.asarray(pallas[0])
+        for i in range(len(lens)):
+            np.testing.assert_array_equal(path[i, :lens[i]].numpy(),
+                                          ppath[i, :lens[i]])
+    else:
+        nstates = params[0].shape[0]
+        ref = vit.segment_extents(path, lt, nstates)
+        jref = jvit.segment_extents(jpath, jnp.asarray(lens), nstates)
+        for a, b, c, d in zip(got[:3], ref, jref, pallas[:3]):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+            np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+            np.testing.assert_array_equal(a.numpy(), np.asarray(d))
+    np.testing.assert_array_equal(got[-1].numpy(), logp.numpy())
+    for ref in (jlogp, pallas[-1]):
+        np.testing.assert_allclose(logp.numpy(), np.asarray(ref),
+                                   rtol=LOGP_RTOL)
+    return path
+
+
+@pytest.mark.parametrize('entry', ['viterbi_extents', 'viterbi'])
+@pytest.mark.parametrize('ncomp', [1, 2])
+def test_tie_case_matches_xla_and_pallas(entry, ncomp):
+    """Argmax ties between states 1 and 2 on every frame at their level:
+    all three decodes agree exactly and the lower state always wins."""
+    params = tie_hmm(ncomp)
+    x, lens = level_signal(31 + ncomp, 5, 150, params[2][:, 0])
+    path = check_three_ways(entry, x, lens, params)
+    inside = torch.arange(x.shape[1])[None, :] < torch.from_numpy(lens)[:, None]
+    assert not bool((path == 2).any())
+    assert bool(((path == 1) & inside).any())
+
+
+@pytest.mark.parametrize('entry', ['viterbi_extents', 'viterbi'])
+@pytest.mark.parametrize('seqlen', [63, 130])
+def test_lengths_off_the_tile(spec, entry, seqlen):
+    """Sequence lengths that are not a multiple of the CUDA kernels' tile
+    of 64 frames, with reads of length 1 and of the whole length."""
+    m = SegmentationHMM(spec, device='cpu')
+    params = [t.numpy() for t in port_params(m)]
+    x, lens = level_signal(seqlen, 6, seqlen,
+                           [71.5, 102.1, 112.0, 80.5, 108.95, 96.0], 9)
+    check_three_ways(entry, x, lens, params)
+
+
 def test_padding_does_not_change_result(spec):
     m = SegmentationHMM(spec, device='cpu')
     rng = np.random.RandomState(4)
