@@ -15,7 +15,7 @@
    and [1024, 128] and, after step 3, [64, 4096]; the three LSTMs and the
    Viterbi extents also at ragged batches of 37 reads and 1 read; after
    step 3 both Viterbi entries on an HMM whose states 1 and 2 tie on
-   every frame (K = 1 and 2, [37, 1000]). LSTM outputs within 5e-5
+   every frame (K = 1 and 2, [37, 999]). LSTM outputs within 5e-5
    absolute; Viterbi extents and paths, peak emissions and DP intervals
    exactly equal; Viterbi logp within 1e-5 relative. Times the kernel
    (CUDA events, enqueued behind a device sleep so the host's launch
@@ -34,7 +34,9 @@
    the poly(A) tails and unsplit decisions of a few reads from each window
    bucket the run used (at least two) against the same analyzer on the
    CPU; every kernel must have been launched on this path;
-4. profiles one stage-1 batch and one whole 256-read batch;
+4. profiles one stage-1 batch and one whole 256-read batch: the device's
+   busy share, the ten kernels with the most device time and the port's
+   own kernels;
 5. prints the run's time, a JSON line of the kernels, the card's name and
    power limit, then {"ok": true, ...} last.
 
@@ -79,6 +81,10 @@ GATE_OPS = 28
 # budget, packed minimum and argmax updates (about 25 int32 operations)
 PEAK_FRAME_OPS = 40
 DP_COLUMN_OPS = 25
+# the port's kernel functions, whose device time each profile lists
+PORT_KERNELS = ('lstm2_stacked_kernel', 'bilstm_kernel', 'lstm_last_kernel',
+                'viterbi_extents_kernel', 'viterbi_path_kernel',
+                'peaks_kernel', 'dp_kernel')
 # reads of each poly(A) window bucket held against the CPU on the main path
 CPU_PER_BUCKET = 3
 # one read in 16 is two molecules (a second leader and adapter 40% into
@@ -345,10 +351,11 @@ def tie_hmm(ncomp):
             for a in (np.log(start), np.log(trans), mus, sigmas, logws)]
 
 
-def check_viterbi_ties(rng, batch=37, seqlen=1000):
+def check_viterbi_ties(rng, batch=37, seqlen=999):
     """Both Viterbi entries on the tie HMM, K = 1 and 2, against their
     plain versions, on signal at its states' levels (lengths from 1 to
-    seqlen; seqlen is not a multiple of the kernels' tile)."""
+    seqlen; seqlen is not a multiple of the kernels' tile, and odd, so
+    the path is written with 8-byte stores)."""
     from poreplex_torch.kernels import viterbi as kvit
     rows = []
     for ncomp in (1, 2):
@@ -616,12 +623,16 @@ def profile(label, fn):
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    ours = sorted((name, us) for name, us in by_name.items()
+                  if any(k in name for k in PORT_KERNELS))
     busy_ms = busy_us / 1e3
     log('{} profile: wall {:.2f} ms, device busy {:.2f} ms ({:.1%}) in {} '
-        'device events; by name: {}'.format(
+        'device events; by name: {}; the port\'s kernels: {}'.format(
             label, wall_ms, busy_ms, busy_ms / wall_ms, len(spans),
             '; '.join('{} {:.3f} ms'.format(name[:60], us / 1e3)
-                      for name, us in top)))
+                      for name, us in top),
+            '; '.join('{} {:.3f} ms'.format(name[:60], us / 1e3)
+                      for name, us in ours)))
 
 
 def profile_batch(analyzer, reads):
