@@ -330,36 +330,16 @@ def check_viterbi(engine, rng):
             for batch in (BATCH,) + RAGGED]
 
 
-def tie_hmm(ncomp):
-    """A 6-state HMM with ncomp mixture components whose states 1 and 2
-    have equal start probabilities, emissions and transitions (out of and
-    into each), so their scores are equal on every frame and every argmax
-    over predecessors ties between them: the lower state must win, and
-    state 2 never appears in a path."""
-    start = np.array([0.4, 0.2, 0.2, 0.1, 0.05, 0.05])
-    trans = np.full((6, 6), 0.02)
-    np.fill_diagonal(trans, 0.9)
-    trans[:, 2] = trans[:, 1]
-    trans[2, :] = trans[1, :]
-    trans /= trans.sum(axis=1, keepdims=True)
-    mus = np.array([[70, 60], [100, 90], [100, 90], [80, 65], [110, 105],
-                    [95, 85]])[:, :ncomp]
-    sigmas = np.array([[3, 4], [4, 5], [4, 5], [7, 3], [2.5, 3],
-                       [10, 12]])[:, :ncomp]
-    logws = np.log(np.full((6, ncomp), 1.0 / ncomp))
-    return [torch.as_tensor(a.astype(np.float32), device=DEVICE)
-            for a in (np.log(start), np.log(trans), mus, sigmas, logws)]
-
-
 def check_viterbi_ties(rng, batch=37, seqlen=999):
-    """Both Viterbi entries on the tie HMM, K = 1 and 2, against their
-    plain versions, on signal at its states' levels (lengths from 1 to
-    seqlen; seqlen is not a multiple of the kernels' tile, and odd, so
-    the path is written with 8-byte stores)."""
+    """Both Viterbi entries on the tie HMM (simulate.tie_hmm), K = 1 and 2,
+    against their plain versions, on signal at its states' levels (lengths
+    from 1 to seqlen; seqlen is not a multiple of the kernels' tile, and
+    odd, so the path is written with 8-byte stores)."""
     from poreplex_torch.kernels import viterbi as kvit
+    from poreplex_torch.simulate import tie_hmm
     rows = []
     for ncomp in (1, 2):
-        params = tie_hmm(ncomp)
+        params = [torch.as_tensor(a, device=DEVICE) for a in tie_hmm(ncomp)]
         levels = rng.choice(params[2][:, 0].cpu().numpy(),
                             (batch, seqlen // 20 + 1))
         xs = (np.repeat(levels, 20, axis=1)[:, :seqlen] +

@@ -17,6 +17,7 @@ from poreplex_torch import kernels
 from poreplex_torch.kernels import viterbi as kvit
 from poreplex_torch.models.segmentation import SegmentationHMM
 from poreplex_torch.ops import viterbi as vit
+from poreplex_torch.simulate import tie_hmm
 
 LOGP_RTOL = 1e-5
 
@@ -117,26 +118,6 @@ def test_tiebreak_first_occurrence():
     np.testing.assert_array_equal(path.numpy(), np.asarray(jpath))
     np.testing.assert_allclose(logp.numpy(), np.asarray(jlogp),
                                rtol=LOGP_RTOL)
-
-
-def tie_hmm(ncomp):
-    """A 6-state HMM with ncomp mixture components whose states 1 and 2
-    have equal start probabilities, emissions and transitions (out of and
-    into each): their scores are equal on every frame, so every argmax
-    over predecessors that reaches them ties, and state 2 never wins."""
-    start = np.array([0.4, 0.2, 0.2, 0.1, 0.05, 0.05])
-    trans = np.full((6, 6), 0.02)
-    np.fill_diagonal(trans, 0.9)
-    trans[:, 2] = trans[:, 1]
-    trans[2, :] = trans[1, :]
-    trans /= trans.sum(axis=1, keepdims=True)
-    mus = np.array([[70, 60], [100, 90], [100, 90], [80, 65], [110, 105],
-                    [95, 85]])[:, :ncomp]
-    sigmas = np.array([[3, 4], [4, 5], [4, 5], [7, 3], [2.5, 3],
-                       [10, 12]])[:, :ncomp]
-    logws = np.log(np.full((6, ncomp), 1.0 / ncomp))
-    return [a.astype(np.float32)
-            for a in (np.log(start), np.log(trans), mus, sigmas, logws)]
 
 
 def level_signal(seed, B, T, levels, runlen=20):
