@@ -11,7 +11,9 @@
    detector at [256, 8192], [8, 16384] and, after step 3, [64, 32768] and
    [37, 2002] (against the plain version on CPU copies of the inputs;
    the last one's length is not a multiple of 4), the poly(A)
-   DP at [512, 512] and [512, 1024], the unsplit Viterbi at [1024, 1024]
+   DP (both packs of a round in one launch) at [512, 512], [512, 1024],
+   [256, 1024] and [128, 1024] and on the adversarial rows of
+   simulate.dp_cases (K = 1 to 1500), the unsplit Viterbi at [1024, 1024]
    and [1024, 128] and, after step 3, [64, 4096]; the three LSTMs and the
    Viterbi extents also at ragged batches of 37 reads and 1 read; after
    step 3 both Viterbi entries on an HMM whose states 1 and 2 tie on
@@ -21,9 +23,10 @@
    (CUDA events, enqueued behind a device sleep so the host's launch
    overhead is not in the time), the plain version and, where one PyTorch
    call computes the same function, that call (torch.nn.LSTM with the
-   converted weights); the LSTM lines also give the time per step and the
-   peak detector's and the Viterbis' the time per frame, each with the
-   launch (reads per block, threads, blocks);
+   converted weights); the LSTM lines also give the time per step, the
+   peak detector's and the Viterbis' the time per frame and the DP's the
+   time per column, each with the launch (rows per block, threads,
+   blocks);
 3. simulates 512 reads (basecalls included, poly(A) tails of 500 to
    20,000 samples, transcripts of 9,000 to 90,000 raw samples, one in 16
    made of two molecules) from a fixed seed and runs them through
@@ -434,26 +437,58 @@ def check_peaks(rng, polya_config, shapes, plain_device=DEVICE):
 
 
 def check_dp(rng):
-    """The interval DP on A and B packs stacked, as a round launches it."""
+    """The interval DP as a round launches it, packs A and B of R windows
+    in one launch over their one length and count ([2R, K] rows), at the
+    main path's launches: 256 windows of 8,192 samples (K = 512), 128 of
+    16,384 and 64 of 32,768 (K = 1024), and 256 windows at K = 1024, the
+    widest launch of that table. Then the adversarial rows of
+    simulate.dp_cases, one pack, at K = 1, 33, 511, 512, 1024 and 1500.
+    The first two shapes draw from rng as before; the rest from a
+    generator of their own, so the main path's reads do not change."""
     from poreplex_torch.kernels import polya_dp as kdp
     from poreplex_torch.ops import polya_dp as dp_ops
+    from poreplex_torch.simulate import dp_cases
+    own = np.random.default_rng(SEED + 3)
     rows = []
-    for N, K in ((2 * BATCH, 512), (2 * BATCH, 1024)):
-        isp = torch.as_tensor(rng.uniform(size=(N, K)) < 0.6, device=DEVICE)
-        ln = torch.as_tensor(rng.integers(1, 300, (N, K)).astype(np.float32),
+    for N, K in ((2 * BATCH, 512), (2 * BATCH, 1024), (BATCH, 1024),
+                 (BATCH // 2, 1024)):
+        gen = rng if N == 2 * BATCH else own
+        isp = torch.as_tensor(gen.uniform(size=(N, K)) < 0.6, device=DEVICE)
+        ln = torch.as_tensor(gen.integers(1, 300, (N, K)).astype(np.float32),
                              device=DEVICE)
-        counts = rng.integers(K // 8, K + 1, N).astype(np.int32)
+        counts = gen.integers(K // 8, K + 1, N).astype(np.int32)
+        R = N // 2
+        a, b, ln, counts = isp[:R], isp[R:], ln[:R], counts[:R]
         n = torch.as_tensor(counts, device=DEVICE)
-        kernel = lambda: kdp.dp(isp, ln, n, 1.5, 110)
+        kernel = lambda: kdp.dp(a, ln, n, 1.5, 110, is_polya_b=b)
         got = kernel()
-        ref, plain_ms = timed(lambda: dp_ops.dp_core(isp, ln, n, 1.5, 110))
-        rows.append(exact_row(
+        ref, plain_ms = timed(lambda: dp_ops.dp_core(
+            torch.cat([a, b]), torch.cat([ln, ln]), torch.cat([n, n]), 1.5,
+            110))
+        row = exact_row(
             'polya_dp', 'poreplex_torch/csrc/polya_dp.cu',
             'poreplex_tpu/ops/pallas_polya_dp.py:114', [N, K], got, ref,
-            kernel, plain_ms, flops=int(counts.sum()) * DP_COLUMN_OPS,
-            # is_polya and length over each row's events, the counts, the
-            # three outputs
-            nbytes=5 * int(counts.sum()) + 4 * N + 3 * 4 * N))
+            kernel, plain_ms, flops=2 * int(counts.sum()) * DP_COLUMN_OPS,
+            # both masks and the one length over each row's events, the
+            # counts, the three outputs of both packs
+            nbytes=6 * int(counts.sum()) + 4 * R + 3 * 4 * N)
+        row.update(steps=K, step_unit='column', launch=kdp.launch_shape(N))
+        rows.append(row)
+    held = []
+    for K in (1, 33, 511, 512, 1024, 1500):
+        ip, ln, n = (torch.as_tensor(x, device=DEVICE)
+                     for x in dp_cases(own, 48, K))
+        got = kdp.dp(ip, ln, n, 1.5, 110)
+        ref = dp_ops.dp_core(ip, ln, n, 1.5, 110)
+        for a, b in zip(got, ref):
+            bad = int((a != b).sum())
+            if bad:
+                raise AssertionError('polya_dp on simulate.dp_cases at K = '
+                                     '{}: {} entries differ from the plain '
+                                     'version'.format(K, bad))
+        held.append('{} ({} found)'.format(K, int((ref[2] > 0).sum())))
+    log('polya_dp on simulate.dp_cases == plain version, 48 rows at K = ' +
+        ', '.join(held))
     return rows
 
 
@@ -597,22 +632,26 @@ def profile(label, fn):
                    not e.is_user_annotation and
                    not e.name.startswith('Activity Buffer'))
     busy_us, end = 0.0, float('-inf')
-    by_name = {}
+    by_name, count = {}, {}
     for start, stop, name in spans:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
+        count[name] = count.get(name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = sorted((name, us) for name, us in by_name.items()
                   if any(k in name for k in PORT_KERNELS))
+    most = sorted(count.items(), key=lambda kv: -kv[1])[:12]
     busy_ms = busy_us / 1e3
     log('{} profile: wall {:.2f} ms, device busy {:.2f} ms ({:.1%}) in {} '
-        'device events; by name: {}; the port\'s kernels: {}'.format(
+        'device events; by name: {}; the port\'s kernels: {}; the most '
+        'launched: {}'.format(
             label, wall_ms, busy_ms, busy_ms / wall_ms, len(spans),
             '; '.join('{} {:.3f} ms'.format(name[:60], us / 1e3)
                       for name, us in top),
-            '; '.join('{} {:.3f} ms'.format(name[:60], us / 1e3)
-                      for name, us in ours)))
+            '; '.join('{} {:.3f} ms ({} launches)'.format(
+                name[:60], us / 1e3, count[name]) for name, us in ours),
+            '; '.join('{} {}'.format(name[:60], n) for name, n in most)))
 
 
 def profile_batch(analyzer, reads):

@@ -1,7 +1,9 @@
 """Wrapper of the poly(A) interval DP kernel (``csrc/polya_dp.cu``).
 
-Same signature and results as ``ops.polya_dp.dp_core``, which runs for CPU
-tensors: (start, end, score) int32 [N].
+Same results as ``ops.polya_dp.dp_core``, which runs for CPU tensors:
+(start, end, score) int32 [N]. A round's two decision packs share their
+event lengths and counts, so one call takes both masks and returns [2N]
+outputs, the rows of the first mask then those of the second.
 """
 
 import ctypes
@@ -14,7 +16,8 @@ from ..ops import polya_dp as dp_ops
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'pp_polya_dp': [_P] * 6 + [_I, _I, ctypes.c_float, _I, _P],
+    'pp_polya_dp': [_P] * 5 + [_I, _I, _I, ctypes.c_float, _I, _P],
+    'pp_polya_dp_launch_shape': [_I, _P],
 }
 
 
@@ -22,33 +25,48 @@ def _lib():
     return _build.library('polya_dp.cu', _SIGNATURES)
 
 
-def dp(is_polya, length, n_events, spike_weight, spike_tolerance):
-    """is_polya [N, K] bool, length [N, K] float32, n_events [N]."""
+def launch_shape(rows):
+    """(rows per block, threads per block, blocks) of the kernel for
+    ``rows`` rows (both packs counted)."""
+    shape = (ctypes.c_int * 3)()
+    _build.check(_lib().pp_polya_dp_launch_shape(rows,
+                                                 ctypes.addressof(shape)),
+                 'polya_dp')
+    return tuple(shape)
+
+
+def dp(is_polya, length, n_events, spike_weight, spike_tolerance,
+       is_polya_b=None):
+    """is_polya [N, K] bool, length [N, K] float32, n_events [N]; with
+    is_polya_b [N, K] bool, the DP of both masks over the same lengths
+    and counts in one launch, [2N] outputs."""
+    masks = (is_polya,) if is_polya_b is None else (is_polya, is_polya_b)
     if is_polya.device.type == 'cpu':
-        return dp_ops.dp_core(is_polya, length, n_events, spike_weight,
+        packs = len(masks)
+        return dp_ops.dp_core(torch.cat(masks), torch.cat([length] * packs),
+                              torch.cat([n_events] * packs), spike_weight,
                               spike_tolerance)
-    if (is_polya.dim() != 2 or is_polya.dtype != torch.bool or
-            length.shape != is_polya.shape or
+    if (any(m.dim() != 2 or m.dtype != torch.bool or
+            m.shape != length.shape for m in masks) or
             length.dtype != torch.float32):
-        raise ValueError('polya_dp: is_polya must be bool and length '
-                         'float32, both [N, K]')
+        raise ValueError('polya_dp: masks must be bool and length float32, '
+                         'all [N, K]')
     rows, kmax = is_polya.shape
     if tuple(n_events.shape) != (rows,):
         raise ValueError('polya_dp: n_events must be [N]')
     if rows == 0 or kmax == 0:
         raise ValueError('polya_dp: empty input')
-    isp = is_polya.t().to(torch.uint8).contiguous()      # [K, N]: coalesced
-    lengths = length.t().contiguous()
+    isp = [m.contiguous() for m in masks]
+    lengths = length.contiguous()
     n = n_events.to(torch.int32).contiguous()
-    start = torch.empty(rows, dtype=torch.int32, device=is_polya.device)
-    end = torch.empty_like(start)
-    score = torch.empty_like(start)
-    _build.require_cuda('polya_dp', isp, lengths, n, start, end, score)
+    out = torch.empty((3, len(masks) * rows), dtype=torch.int32,
+                      device=is_polya.device)
+    _build.require_cuda('polya_dp', *isp, lengths, n, out)
     p = _build.ptr
     code = _lib().pp_polya_dp(
-        p(isp), p(lengths), p(n), p(start), p(end), p(score), rows, kmax,
-        float(spike_weight), int(spike_tolerance),
-        _build.stream(is_polya.device))
+        p(isp[0]), p(isp[1]) if len(isp) == 2 else None, p(lengths), p(n),
+        p(out), rows, len(isp), kmax, float(spike_weight),
+        int(spike_tolerance), _build.stream(is_polya.device))
     _build.check(code, 'polya_dp')
     launches['polya_dp'] += 1
-    return start, end, score
+    return out[0], out[1], out[2]

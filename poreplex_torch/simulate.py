@@ -90,6 +90,89 @@ def tie_hmm(ncomp):
             for a in (np.log(start), np.log(trans), mus, sigmas, logws)]
 
 
+def dp_cases(rng, rows, kmax, spike_weight=1.5, spike_tolerance=110):
+    """Rows of the poly(A) interval DP that stress its ties and its column
+    splits: (is_polya bool [rows, kmax], length float32 [rows, kmax],
+    n_events int32 [rows]). Row kinds, in turn: random events; equal
+    scores from different starts; equal scores and starts to different
+    ends; deaths (budget one over spike_tolerance) at the first and last
+    column of every 16, 32, 512 and 1024 columns, from one spike or from a
+    run that crosses the boundary; a spike run that ends exactly at
+    spike_tolerance (no death, no valid end); and event counts of 1, of
+    kmax and of kmax minus an odd number. Lengths keep every prefix within
+    the DP's exact int32 packing."""
+    # spike_weight * longest * kmax bounds |prefix|, which must stay below
+    # the point where (prefix + 2**20) * kmax + start overflows
+    limit = (2 ** 31 - 1) // kmax - (1 << 20) - 1
+    longest = int(min(300.0, limit / (spike_weight * kmax)))
+    tol = int(spike_tolerance)
+    # a spike whose truncated length scores exactly -w
+    small = max(1, min(longest, 6))
+    is_polya = np.zeros((rows, kmax), bool)
+    length = np.zeros((rows, kmax), np.float32)
+    n_events = np.zeros(rows, np.int32)
+    boundaries = [c for unit in (16, 32, 512, 1024)
+                  for at in range(0, kmax, unit) for c in (at, at + unit - 1)
+                  if c < kmax]
+    for r in range(rows):
+        kind = r % 6
+        p = rng.uniform(size=kmax) < 0.6
+        if kind == 0:
+            ln = rng.uniform(1, longest, kmax).astype(np.float32)
+        else:
+            ln = rng.integers(1, longest + 1, kmax).astype(np.float32)
+        if kind == 1:
+            # a poly(A) column, a spike that cancels it exactly, then the
+            # same score again: intervals from both starts tie
+            for at in range(int(rng.integers(0, 4)), kmax - 2, 7):
+                w = int(spike_weight * small)
+                p[at:at + 3] = (True, False, True)
+                ln[at:at + 3] = (w, small, ln[at + 2])
+        elif kind == 2:
+            # a poly(A) column, a spike, and a poly(A) column that wins
+            # back exactly the spike's score: both ends tie
+            for at in range(int(rng.integers(0, 4)), kmax - 2, 5):
+                w = int(spike_weight * small)
+                p[at:at + 3] = (True, False, True)
+                ln[at:at + 3] = (ln[at], small, w)
+        elif kind == 3:
+            p[:] = True
+            for c in boundaries:
+                if rng.uniform() < 0.6:
+                    continue
+                if rng.uniform() < 0.5 or c == 0:
+                    p[c], ln[c] = False, tol + 1
+                else:
+                    # a run crossing into c that dies exactly at c
+                    half = (tol + 1) // 2
+                    p[c - 1:c + 1] = False
+                    ln[c - 1:c + 1] = (half, tol + 1 - half)
+        elif kind == 4:
+            at = int(rng.integers(0, max(1, kmax - 3)))
+            split = tol // 3
+            p[at:at + 3] = False
+            ln[at:at + 3] = (split, split, tol - 2 * split)[:len(p[at:at + 3])]
+        else:
+            # blocks of equal score between deaths, each a start or an end
+            # tie across the last column of 16, 32, 512 or 1024 columns:
+            # the best is the first block's, from its first column
+            p[:], ln[:] = False, tol + 1
+            w = int(spike_weight * small)
+            lasts = boundaries[1::2]
+            for c in sorted(rng.choice(lasts, min(6, len(lasts)),
+                                       replace=False)):
+                if c + 3 < kmax:
+                    p[c:c + 3] = (True, False, True)
+                    ln[c:c + 3] = ((longest, small, w) if rng.uniform() < 0.5
+                                   else (w, small, longest))
+        is_polya[r], length[r] = p, ln
+        n_events[r] = (1, kmax, max(1, kmax - 2 * int(rng.integers(0, 8)) - 1),
+                       int(rng.integers(1, kmax + 1)))[r % 4]
+    scores = np.where(is_polya, length, -np.float32(spike_weight) * length)
+    assert np.abs(np.trunc(scores)).sum(axis=1).max() <= limit
+    return is_polya, length, n_events
+
+
 def _to_dac(pa):
     dac = pa / (RANGE / DIGITISATION) - OFFSET
     return np.clip(np.round(dac), -32768, 32767).astype(np.int16)

@@ -1,9 +1,11 @@
 """poreplex_torch poly(A) interval DP vs the JAX package: bit-identical to
 the XLA formulation (ops.polya_dp.dp_core) and to the Pallas kernel in
 interpret mode, and equal to the exhaustive oracle, on the cases of
-tests/test_polya_dp.py. All arithmetic is int32, so there is no
-tolerance. The CUDA kernel does not run here; chip_smoke.py holds it
-against the plain version on the card."""
+tests/test_polya_dp.py and on simulate.dp_cases (ties, deaths at the
+CUDA kernel's chunk and span edges, a budget at the tolerance, event
+counts of 1 and K, K from 1 to 1500). All arithmetic is int32, so there
+is no tolerance. The CUDA kernel does not run here; chip_smoke.py holds
+it against the plain version on the card, on the same generator."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,10 @@ from poreplex_tpu.refimpl.polya_dp import find_best_polya_interval as ref_dp
 from poreplex_torch import kernels
 from poreplex_torch.kernels import polya_dp as kdp
 from poreplex_torch.ops import polya_dp as tdp
+from poreplex_torch.simulate import dp_cases
+
+# events of each adversarial row held against the O(n^2) oracle
+ORACLE_EVENTS = 96
 
 
 def port(ip, ln, n):
@@ -57,6 +63,46 @@ def test_matches_xla_and_pallas(seed):
                      torch.from_numpy(n), 1.5, 110)
     assert kernels.launches == before          # CPU tensors: plain version
     for a, b in zip(wrapped, got):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+@pytest.mark.parametrize('kmax', [1, 33, 511, 512, 1024, 1500])
+def test_adversarial_cases(kmax):
+    ip, ln, n = dp_cases(np.random.default_rng(kmax), 24, kmax)
+    got = port(ip, ln, n)
+    assert (got[2] > 0).any() and (got[2] == 0).any()
+    for ref in (jdp.find_best_polya_interval(jnp.asarray(ip),
+                                             jnp.asarray(ln), jnp.asarray(n)),
+                dp_pallas(jnp.asarray(ip), jnp.asarray(ln), jnp.asarray(n),
+                          interpret=True)):
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, np.asarray(b))
+
+    # the oracle on each row's first events
+    cut = np.minimum(n, ORACLE_EVENTS)
+    s, e, v = port(ip, ln, cut)
+    for i, m in enumerate(cut):
+        expected = ref_dp(ip[i, :m], ln[i, :m])
+        if expected is None:
+            assert v[i] <= 0
+        else:
+            assert (s[i], e[i]) == expected
+
+
+def test_wrapper_takes_both_packs():
+    """Two masks over one length and count: the rows of the first, then
+    those of the second, as the plain version gives them stacked."""
+    rng = np.random.default_rng(7)
+    ip, ln, n = dp_cases(rng, 12, 40)
+    ip_b = rng.uniform(size=ip.shape) < 0.5
+    before = dict(kernels.launches)
+    got = kdp.dp(torch.from_numpy(ip), torch.from_numpy(ln),
+                 torch.from_numpy(n), 1.5, 110,
+                 is_polya_b=torch.from_numpy(ip_b))
+    assert kernels.launches == before
+    ref = port(np.concatenate([ip, ip_b]), np.concatenate([ln, ln]),
+               np.concatenate([n, n]))
+    for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), b)
 
 
