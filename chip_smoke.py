@@ -13,7 +13,7 @@
    the last one's length is not a multiple of 4), the poly(A)
    DP (both packs of a round in one launch) at [512, 512], [512, 1024],
    [256, 1024] and [128, 1024] and on the adversarial rows of
-   simulate.dp_cases (K = 1 to 1500), the unsplit Viterbi at [1024, 1024]
+   simulate.dp_cases (K = 1 to 1500, in either pack), the unsplit Viterbi at [1024, 1024]
    and [1024, 128] and, after step 3, [64, 4096]; the three LSTMs and the
    Viterbi extents also at ragged batches of 37 reads and 1 read; after
    step 3 both Viterbi entries on an HMM whose states 1 and 2 tie on
@@ -84,6 +84,10 @@ GATE_OPS = 28
 # budget, packed minimum and argmax updates (about 25 int32 operations)
 PEAK_FRAME_OPS = 40
 DP_COLUMN_OPS = 25
+# widths of the adversarial DP rows: one column, odd and even widths
+# within one warp's span, ones that do and do not fill the wider chunks
+# (528 and 1040 are multiples of 16, not of 32), and one past the span
+DP_CASE_WIDTHS = (1, 33, 511, 512, 528, 1024, 1040, 1500)
 # the port's kernel functions, whose device time each profile lists
 PORT_KERNELS = ('lstm2_stacked_kernel', 'bilstm_kernel', 'lstm_last_kernel',
                 'viterbi_extents_kernel', 'viterbi_path_kernel',
@@ -442,7 +446,8 @@ def check_dp(rng):
     main path's launches: 256 windows of 8,192 samples (K = 512), 128 of
     16,384 and 64 of 32,768 (K = 1024), and 256 windows at K = 1024, the
     widest launch of that table. Then the adversarial rows of
-    simulate.dp_cases, one pack, at K = 1, 33, 511, 512, 1024 and 1500.
+    simulate.dp_cases at each K of DP_CASE_WIDTHS, in pack A and then in
+    pack B of the same two-pack launch, beside a random mask.
     The first two shapes draw from rng as before; the rest from a
     generator of their own, so the main path's reads do not change."""
     from poreplex_torch.kernels import polya_dp as kdp
@@ -460,7 +465,7 @@ def check_dp(rng):
         R = N // 2
         a, b, ln, counts = isp[:R], isp[R:], ln[:R], counts[:R]
         n = torch.as_tensor(counts, device=DEVICE)
-        kernel = lambda: kdp.dp(a, ln, n, 1.5, 110, is_polya_b=b)
+        kernel = lambda: kdp.dp(a, b, ln, n, 1.5, 110)
         got = kernel()
         ref, plain_ms = timed(lambda: dp_ops.dp_core(
             torch.cat([a, b]), torch.cat([ln, ln]), torch.cat([n, n]), 1.5,
@@ -475,20 +480,27 @@ def check_dp(rng):
         row.update(steps=K, step_unit='column', launch=kdp.launch_shape(N))
         rows.append(row)
     held = []
-    for K in (1, 33, 511, 512, 1024, 1500):
+    for K in DP_CASE_WIDTHS:
         ip, ln, n = (torch.as_tensor(x, device=DEVICE)
                      for x in dp_cases(own, 48, K))
-        got = kdp.dp(ip, ln, n, 1.5, 110)
-        ref = dp_ops.dp_core(ip, ln, n, 1.5, 110)
-        for a, b in zip(got, ref):
-            bad = int((a != b).sum())
-            if bad:
-                raise AssertionError('polya_dp on simulate.dp_cases at K = '
-                                     '{}: {} entries differ from the plain '
-                                     'version'.format(K, bad))
-        held.append('{} ({} found)'.format(K, int((ref[2] > 0).sum())))
-    log('polya_dp on simulate.dp_cases == plain version, 48 rows at K = ' +
-        ', '.join(held))
+        other = torch.as_tensor(own.uniform(size=tuple(ip.shape)) < 0.6,
+                                device=DEVICE)
+        ref = dp_ops.dp_core(torch.cat([ip, other]), torch.cat([ln, ln]),
+                             torch.cat([n, n]), 1.5, 110)
+        # the adversarial rows in pack A, then in pack B
+        for first, pair in ((True, (ip, other)), (False, (other, ip))):
+            got = kdp.dp(*pair, ln, n, 1.5, 110)
+            for a, b in zip(got, ref):
+                want = b if first else torch.cat([b[48:], b[:48]])
+                bad = int((a != want).sum())
+                if bad:
+                    raise AssertionError(
+                        'polya_dp on simulate.dp_cases at K = {}, pack {}: '
+                        '{} entries differ from the plain version'.format(
+                            K, 'A' if first else 'B', bad))
+        held.append('{} ({} found)'.format(K, int((ref[2][:48] > 0).sum())))
+    log('polya_dp on simulate.dp_cases in pack A and in pack B == plain '
+        'version, 48 rows at K = ' + ', '.join(held))
     return rows
 
 

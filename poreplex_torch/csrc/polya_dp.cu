@@ -75,57 +75,57 @@ __device__ __forceinline__ unsigned byte_bits(unsigned w) {
 
 // A lane's chunk of C columns from j0: the poly(A) bits and the lengths.
 // Columns at and past n are never valid and only follow the valid ones,
-// so a chunk that starts past n is not read and one that ends past it is
-// read whole (VEC: K is a multiple of 16, so it ends within the row).
+// so what they hold does not matter: a chunk that starts past n is not
+// read, a VEC chunk that starts before it is read whole (VEC: K is a
+// multiple of C, so the chunk ends within the row), and a scalar chunk
+// repeats column n - 1 past n, so its loads need no predicate.
 template <int C, bool VEC>
 __device__ __forceinline__ void load_chunk(const unsigned char* isp,
                                            const float* len, int j0, int n,
                                            unsigned& bits, float (&l)[C]) {
     bits = 0;
-    if (VEC) {
-        if (j0 < n) {
+    if (j0 >= n) {
 #pragma unroll
-            for (int q = 0; q < C / 16; ++q) {
-                const uint4 w = *reinterpret_cast<const uint4*>(isp + j0 + 16 * q);
-                bits |= (byte_bits(w.x) | byte_bits(w.y) << 4 |
-                         byte_bits(w.z) << 8 | byte_bits(w.w) << 12) << (16 * q);
-            }
+        for (int c = 0; c < C; ++c) l[c] = 0.0f;
+    } else if (VEC) {
 #pragma unroll
-            for (int q = 0; q < C / 4; ++q) {
-                const float4 v = *reinterpret_cast<const float4*>(len + j0 + 4 * q);
-                l[4 * q] = v.x;
-                l[4 * q + 1] = v.y;
-                l[4 * q + 2] = v.z;
-                l[4 * q + 3] = v.w;
-            }
-        } else {
+        for (int q = 0; q < C / 16; ++q) {
+            const uint4 w = *reinterpret_cast<const uint4*>(isp + j0 + 16 * q);
+            bits |= (byte_bits(w.x) | byte_bits(w.y) << 4 |
+                     byte_bits(w.z) << 8 | byte_bits(w.w) << 12) << (16 * q);
+        }
 #pragma unroll
-            for (int c = 0; c < C; ++c) l[c] = 0.0f;
+        for (int q = 0; q < C / 4; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(len + j0 + 4 * q);
+            l[4 * q] = v.x;
+            l[4 * q + 1] = v.y;
+            l[4 * q + 2] = v.z;
+            l[4 * q + 3] = v.w;
         }
     } else {
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-            const bool in = j0 + c < n;
-            bits |= (in && isp[j0 + c] != 0 ? 1u : 0u) << c;
-            l[c] = in ? len[j0 + c] : 0.0f;
+            const int j = min(j0 + c, n - 1);
+            bits |= (isp[j] != 0 ? 1u : 0u) << c;
+            l[c] = len[j];
         }
     }
 }
 
 // isp_a, isp_b [R, K] bytes (0/1); length [R, K]; n_events [R];
-// out [3, rows]: start, end, score. rows is R or 2R.
+// out [3, 2R]: start, end, score.
 template <int C, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 dp_kernel(const unsigned char* __restrict__ isp_a,
           const unsigned char* __restrict__ isp_b,
           const float* __restrict__ length, const int* __restrict__ n_events,
-          int* __restrict__ out, int R, int rows, int K, float neg_weight,
-          int tol) {
+          int* __restrict__ out, int R, int K, float neg_weight, int tol) {
     const int lane = threadIdx.x & 31;
     // warp-uniform by construction, so no shuffle below sits in code the
     // compiler must treat as divergent
     const int row = blockIdx.x * WARPS +
                     __shfl_sync(FULL, (int)threadIdx.x >> 5, 0);
+    const int rows = 2 * R;
     if (row >= rows) return;
     const int src = row < R ? row : row - R;
     const unsigned char* isp = (row < R ? isp_a : isp_b) + (size_t)src * K;
@@ -267,45 +267,45 @@ dp_kernel(const unsigned char* __restrict__ isp_a,
     }
 }
 
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
 template <int C>
 void launch(const unsigned char* isp_a, const unsigned char* isp_b,
-            const float* length, const int* n_events, int* out, int R,
-            int rows, int K, float neg_weight, int tol, bool vec,
-            cudaStream_t stream) {
-    const dim3 grid((rows + WARPS - 1) / WARPS);
+            const float* length, const int* n_events, int* out, int R, int K,
+            float neg_weight, int tol, cudaStream_t stream) {
+    const dim3 grid((2 * R + WARPS - 1) / WARPS);
+    // 16-byte loads where every row starts on a 16-byte boundary and every
+    // chunk that starts within a row ends within it
+    const bool vec = K % C == 0 && aligned16(isp_a) && aligned16(isp_b) &&
+                     aligned16(length);
     if (vec)
         dp_kernel<C, true><<<grid, THREADS, 0, stream>>>(
-            isp_a, isp_b, length, n_events, out, R, rows, K, neg_weight, tol);
+            isp_a, isp_b, length, n_events, out, R, K, neg_weight, tol);
     else
         dp_kernel<C, false><<<grid, THREADS, 0, stream>>>(
-            isp_a, isp_b, length, n_events, out, R, rows, K, neg_weight, tol);
+            isp_a, isp_b, length, n_events, out, R, K, neg_weight, tol);
 }
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// is_polya_b may be null (packs = 1); out is int32 [3, packs * R]: start,
-// end, score. Returns a cudaError_t code.
-int pp_polya_dp(const unsigned char* is_polya, const unsigned char* is_polya_b,
-                const float* length, const int* n_events, int* out, int R,
-                int packs, int K, float spike_weight, int spike_tolerance,
-                void* stream) {
-    if (R <= 0 || K <= 0 || (packs != 1 && packs != 2) ||
-        (packs == 2 && is_polya_b == nullptr))
+// The DP of both decision packs of a round over their one length and
+// event count; out is int32 [3, 2R]: start, end, score of the rows of
+// is_polya_a, then of is_polya_b. Returns a cudaError_t code.
+int pp_polya_dp(const unsigned char* is_polya_a,
+                const unsigned char* is_polya_b, const float* length,
+                const int* n_events, int* out, int R, int K,
+                float spike_weight, int spike_tolerance, void* stream) {
+    if (R <= 0 || K <= 0 || is_polya_a == nullptr || is_polya_b == nullptr)
         return (int)cudaErrorInvalidValue;
-    const unsigned char* isp_b = packs == 2 ? is_polya_b : is_polya;
-    const bool vec = K % 16 == 0 && aligned16(is_polya) &&
-                     aligned16(isp_b) && aligned16(length);
     const float neg_weight = -spike_weight;
     if (K <= 32 * 16)
-        launch<16>(is_polya, isp_b, length, n_events, out, R, packs * R, K,
-                   neg_weight, spike_tolerance, vec, (cudaStream_t)stream);
+        launch<16>(is_polya_a, is_polya_b, length, n_events, out, R, K,
+                   neg_weight, spike_tolerance, (cudaStream_t)stream);
     else
-        launch<32>(is_polya, isp_b, length, n_events, out, R, packs * R, K,
-                   neg_weight, spike_tolerance, vec, (cudaStream_t)stream);
+        launch<32>(is_polya_a, is_polya_b, length, n_events, out, R, K,
+                   neg_weight, spike_tolerance, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 

@@ -16,7 +16,7 @@ from ..ops import polya_dp as dp_ops
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'pp_polya_dp': [_P] * 5 + [_I, _I, _I, ctypes.c_float, _I, _P],
+    'pp_polya_dp': [_P] * 5 + [_I, _I, ctypes.c_float, _I, _P],
     'pp_polya_dp_launch_shape': [_I, _P],
 }
 
@@ -35,38 +35,37 @@ def launch_shape(rows):
     return tuple(shape)
 
 
-def dp(is_polya, length, n_events, spike_weight, spike_tolerance,
-       is_polya_b=None):
-    """is_polya [N, K] bool, length [N, K] float32, n_events [N]; with
-    is_polya_b [N, K] bool, the DP of both masks over the same lengths
-    and counts in one launch, [2N] outputs."""
-    masks = (is_polya,) if is_polya_b is None else (is_polya, is_polya_b)
-    if is_polya.device.type == 'cpu':
-        packs = len(masks)
-        return dp_ops.dp_core(torch.cat(masks), torch.cat([length] * packs),
-                              torch.cat([n_events] * packs), spike_weight,
+def dp(is_polya_a, is_polya_b, length, n_events, spike_weight,
+       spike_tolerance):
+    """is_polya_a, is_polya_b [N, K] bool, length [N, K] float32, n_events
+    [N]: the DP of both masks over the same lengths and counts in one
+    launch, [2N] outputs, the rows of is_polya_a then of is_polya_b."""
+    masks = (is_polya_a, is_polya_b)
+    if is_polya_a.device.type == 'cpu':
+        return dp_ops.dp_core(torch.cat(masks), torch.cat([length] * 2),
+                              torch.cat([n_events] * 2), spike_weight,
                               spike_tolerance)
     if (any(m.dim() != 2 or m.dtype != torch.bool or
             m.shape != length.shape for m in masks) or
             length.dtype != torch.float32):
         raise ValueError('polya_dp: masks must be bool and length float32, '
                          'all [N, K]')
-    rows, kmax = is_polya.shape
+    rows, kmax = is_polya_a.shape
     if tuple(n_events.shape) != (rows,):
         raise ValueError('polya_dp: n_events must be [N]')
     if rows == 0 or kmax == 0:
         raise ValueError('polya_dp: empty input')
-    isp = [m.contiguous() for m in masks]
+    isp_a, isp_b = (m.contiguous() for m in masks)
     lengths = length.contiguous()
     n = n_events.to(torch.int32).contiguous()
-    out = torch.empty((3, len(masks) * rows), dtype=torch.int32,
-                      device=is_polya.device)
-    _build.require_cuda('polya_dp', *isp, lengths, n, out)
+    out = torch.empty((3, 2 * rows), dtype=torch.int32,
+                      device=is_polya_a.device)
+    _build.require_cuda('polya_dp', isp_a, isp_b, lengths, n, out)
     p = _build.ptr
     code = _lib().pp_polya_dp(
-        p(isp[0]), p(isp[1]) if len(isp) == 2 else None, p(lengths), p(n),
-        p(out), rows, len(isp), kmax, float(spike_weight),
-        int(spike_tolerance), _build.stream(is_polya.device))
+        p(isp_a), p(isp_b), p(lengths), p(n), p(out), rows, kmax,
+        float(spike_weight), int(spike_tolerance),
+        _build.stream(is_polya_a.device))
     _build.check(code, 'polya_dp')
     launches['polya_dp'] += 1
     return out[0], out[1], out[2]

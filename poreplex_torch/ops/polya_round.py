@@ -163,8 +163,8 @@ def polya_round_core(stream, meta, *, blen, window_length1, window_length2,
     marked_len = torch.where(is_p2, length, 0.0).sum(dim=1)
 
     # both DPs in one launch: A rows, then B rows
-    s_all, e_all, v_all = dp_kernel.dp(is_p1, length, n_events, spike_weight,
-                                       spike_tolerance, is_polya_b=is_p2)
+    s_all, e_all, v_all = dp_kernel.dp(is_p1, is_p2, length, n_events,
+                                       spike_weight, spike_tolerance)
     head_a, spk_a = _decide(starts, length, mean, sub_stdv, n_events, is_p1,
                             s_all[:rows], e_all[:rows], v_all[:rows],
                             max_spikes)

@@ -122,8 +122,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match='no kernel for device'):
         ked.detect_peaks(x, x, lens, 3.0, 8.0, 7, 20, 4.0)
     with pytest.raises(ValueError, match='no kernel for device'):
-        kdp.dp(torch.empty(2, 7, dtype=torch.bool, device='meta'), x, lens,
-               1.5, 110)
+        mask = torch.empty(2, 7, dtype=torch.bool, device='meta')
+        kdp.dp(mask, mask, x, lens, 1.5, 110)
 
 
 @pytest.mark.parametrize('option,value', [

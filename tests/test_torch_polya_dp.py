@@ -59,14 +59,15 @@ def test_matches_xla_and_pallas(seed):
             assert a.dtype == np.int32
 
     before = dict(kernels.launches)
-    wrapped = kdp.dp(torch.from_numpy(ip), torch.from_numpy(ln),
-                     torch.from_numpy(n), 1.5, 110)
+    wrapped = kdp.dp(torch.from_numpy(ip), torch.from_numpy(ip),
+                     torch.from_numpy(ln), torch.from_numpy(n), 1.5, 110)
     assert kernels.launches == before          # CPU tensors: plain version
     for a, b in zip(wrapped, got):
-        np.testing.assert_array_equal(a.numpy(), b)
+        np.testing.assert_array_equal(a.numpy(), np.concatenate([b, b]))
 
 
-@pytest.mark.parametrize('kmax', [1, 33, 511, 512, 1024, 1500])
+@pytest.mark.parametrize('kmax', [1, 33, 511, 512, 528, 1024, 1040,
+                                  1500])
 def test_adversarial_cases(kmax):
     ip, ln, n = dp_cases(np.random.default_rng(kmax), 24, kmax)
     got = port(ip, ln, n)
@@ -89,21 +90,24 @@ def test_adversarial_cases(kmax):
             assert (s[i], e[i]) == expected
 
 
-def test_wrapper_takes_both_packs():
+@pytest.mark.parametrize('adversarial_first', [True, False])
+def test_wrapper_takes_both_packs(adversarial_first):
     """Two masks over one length and count: the rows of the first, then
-    those of the second, as the plain version gives them stacked."""
+    those of the second, as the plain version gives them stacked. The
+    adversarial mask goes in either pack, as chip_smoke.py gives it to the
+    kernel."""
     rng = np.random.default_rng(7)
     ip, ln, n = dp_cases(rng, 12, 40)
-    ip_b = rng.uniform(size=ip.shape) < 0.5
+    other = rng.uniform(size=ip.shape) < 0.5
+    a, b = (ip, other) if adversarial_first else (other, ip)
     before = dict(kernels.launches)
-    got = kdp.dp(torch.from_numpy(ip), torch.from_numpy(ln),
-                 torch.from_numpy(n), 1.5, 110,
-                 is_polya_b=torch.from_numpy(ip_b))
+    got = kdp.dp(torch.from_numpy(a), torch.from_numpy(b),
+                 torch.from_numpy(ln), torch.from_numpy(n), 1.5, 110)
     assert kernels.launches == before
-    ref = port(np.concatenate([ip, ip_b]), np.concatenate([ln, ln]),
+    ref = port(np.concatenate([a, b]), np.concatenate([ln, ln]),
                np.concatenate([n, n]))
-    for a, b in zip(got, ref):
-        np.testing.assert_array_equal(a.numpy(), b)
+    for x, y in zip(got, ref):
+        np.testing.assert_array_equal(x.numpy(), y)
 
 
 @pytest.mark.parametrize('seed', range(6))
