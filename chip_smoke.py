@@ -40,7 +40,16 @@
 4. profiles one stage-1 batch and one whole 256-read batch: the device's
    busy share, the ten kernels with the most device time and the port's
    own kernels;
-5. prints the run's time, a JSON line of the kernels, the card's name and
+5. training at full widths: one demux step at [64, 300] and one scaler
+   step at [8, 2000] on the card held against the same step on the CPU
+   (loss within 1e-5 relative, every gradient within 1e-4 of its tensor's
+   largest element); both trainers through train() for a few steps at
+   batches of 64 and 32 (ms a step, kernel launches a step from the
+   profiler); their checkpoints in DemuxModel and ScalerModel on the card,
+   where kernels 1 to 3 must launch and agree within 5e-5 with the
+   training forward on the held-out windows and heads; then whether
+   libhdf5 can be dlopened (a probe, never a failure);
+6. prints the run's time, a JSON line of the kernels, the card's name and
    power limit, then {"ok": true, ...} last.
 
 Any failure raises and exits non-zero before the last line is printed.
@@ -94,6 +103,16 @@ PORT_KERNELS = ('lstm2_stacked_kernel', 'bilstm_kernel', 'lstm_last_kernel',
                 'peaks_kernel', 'dp_kernel')
 # reads of each poly(A) window bucket held against the CPU on the main path
 CPU_PER_BUCKET = 3
+# the training phase, at full widths: the step held against the CPU (a
+# scaler step there takes seconds, so its batch is 8), the trainers' batches
+# and dataset sizes (windows per class, heads), and their steps (the first
+# is a warm-up)
+TRAIN_PARITY_BATCH = {'demux': 64, 'scaler': 8}
+TRAIN_BATCH = {'demux': 64, 'scaler': 32}
+TRAIN_SIZE = {'demux': 100, 'scaler': 400}
+TRAIN_STEPS = 4
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
 # one read in 16 is two molecules (a second leader and adapter 40% into
 # the transcript, as tests/test_pipeline_e2e.py makes them), the fourth of
 # each 16; the CPU check holds the first
@@ -621,15 +640,20 @@ def run_main_path(config, rng):
             {read.read_id: read for read in reads}, stage1_run, polya_blens)
 
 
-def profile(label, fn):
+def profile(label, fn, host=True):
     """fn() under torch.profiler: wall time, the device's busy share (the
     union of the device's kernel and copy intervals over the wall time)
-    and the device time by kernel name."""
+    and the device time by kernel name. Returns the wall and busy ms and
+    the kernel launches (device events other than copies and memsets).
+    host=False traces the device alone, which costs a step of some 300,000
+    launches less. The profiler's raw events are read as they are: its
+    Python event tree takes minutes to build at that size."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
+    activities = [ProfilerActivity.CUDA] + \
+        ([ProfilerActivity.CPU] if host else [])
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -638,11 +662,11 @@ def profile(label, fn):
     # count the same kernels twice, the stage ranges (utils.trace) are
     # projected onto the device timeline as annotations that span idle
     # gaps, and the profiler's own buffer requests are none of the work
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and
-                   not e.is_user_annotation and
-                   not e.name.startswith('Activity Buffer'))
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA and
+                   not e.is_user_annotation() and
+                   not e.name().startswith('Activity Buffer'))
     busy_us, end = 0.0, float('-inf')
     by_name, count = {}, {}
     for start, stop, name in spans:
@@ -655,6 +679,8 @@ def profile(label, fn):
                   if any(k in name for k in PORT_KERNELS))
     most = sorted(count.items(), key=lambda kv: -kv[1])[:12]
     busy_ms = busy_us / 1e3
+    launches = sum(n for name, n in count.items()
+                   if not name.startswith(('Memcpy', 'Memset')))
     log('{} profile: wall {:.2f} ms, device busy {:.2f} ms ({:.1%}) in {} '
         'device events; by name: {}; the port\'s kernels: {}; the most '
         'launched: {}'.format(
@@ -664,6 +690,7 @@ def profile(label, fn):
             '; '.join('{} {:.3f} ms ({} launches)'.format(
                 name[:60], us / 1e3, count[name]) for name, us in ours),
             '; '.join('{} {}'.format(name[:60], n) for name, n in most)))
+    return wall_ms, busy_ms, launches
 
 
 def profile_batch(analyzer, reads):
@@ -872,6 +899,205 @@ def unsplit_summary(results, reads):
         raise AssertionError('unsplit decisions do not follow the reads')
 
 
+def training_step_parity():
+    """One demux step at [64, 300] and one scaler step at [8, 2000], full
+    widths, on the card and on the CPU from the same parameters, batch and
+    noise: the loss within TRAIN_LOSS_RTOL relative, every gradient tensor
+    within TRAIN_GRAD_RTOL of its largest CPU element."""
+    from poreplex_torch.ops import rnn
+    from poreplex_torch.training import data, train_demux, train_scaler
+    rnn.use_full_fp32()
+    rng = np.random.RandomState(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    batch = TRAIN_PARITY_BATCH['demux']
+    windows, labels = data.demux_dataset(batch // 4, rng)
+    windows = torch.as_tensor(windows[:batch])
+    labels = torch.as_tensor(labels[:batch])
+    noise = train_demux.NOISE_STDDEV * torch.randn(windows.shape,
+                                                   generator=gen)
+    cost = torch.as_tensor(train_demux.DEFAULT_COST_MAT)
+    heads, targets = data.scaler_dataset(TRAIN_PARITY_BATCH['scaler'], rng)
+    heads = torch.as_tensor(heads)
+    targets = torch.as_tensor((targets - targets.mean(0)) / targets.std(0))
+    cases = [
+        ('demux', list(windows.shape), train_demux.DemuxNet,
+         train_demux.init_params(gen),
+         lambda net, dev: train_demux.loss(net, windows.to(dev),
+                                           labels.to(dev), cost.to(dev),
+                                           noise.to(dev))),
+        ('scaler', list(heads.shape), train_scaler.ScalerNet,
+         train_scaler.init_params(gen),
+         lambda net, dev: train_scaler.loss(net, heads.to(dev),
+                                            targets.to(dev))),
+    ]
+    for name, shape, net_class, params, loss in cases:
+        out = {}
+        for dev in (DEVICE, 'cpu'):
+            net = net_class.from_params(params, dev)
+            t0 = time.perf_counter()
+            value = loss(net, dev)
+            value.backward()
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            out[dev] = (value.item(), time.perf_counter() - t0,
+                        {n: p.grad.cpu() for n, p in net.named_parameters()})
+        (got, card_s, got_grads), (want, cpu_s, grads) = out[DEVICE], \
+            out['cpu']
+        loss_err = abs(got - want) / abs(want)
+        grad_err = max(float((got_grads[n] - g).abs().max() /
+                             g.abs().max()) for n, g in grads.items())
+        log('training step parity, {} {}: loss {:.8f} on the card, {:.8f} '
+            'on the CPU (relative err {:.3e}); largest gradient err {:.3e} '
+            'of its tensor\'s largest element over {} tensors; a cold step '
+            '{:.2f} s on the card, {:.2f} s on the CPU'.format(
+                name, shape, got, want, loss_err, grad_err, len(grads),
+                card_s, cpu_s))
+        if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL):
+            raise AssertionError('{} training step on the card differs from '
+                                 'the CPU'.format(name))
+
+
+def timed_training(module, **kwargs):
+    """module.train(**kwargs) on the card with its train_step timed (a
+    host clock around the step, the card synchronised on both sides):
+    (train's result, ms of each step)."""
+    step = module.train_step
+    times = []
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    module.train_step = timed_step
+    try:
+        result = module.train(log=log, device=DEVICE, **kwargs)
+    finally:
+        module.train_step = step
+    return result, times
+
+
+def train_on_card(outdir):
+    """Both trainers through train() on the card at full widths, a few
+    steps each; each step after the first timed, one more step profiled.
+    Returns each network's checkpoint and its held-out inputs."""
+    from poreplex_torch.training import data, layers, train_demux, \
+        train_scaler
+    demux_path = os.path.join(outdir, 'demux.npz')
+    scaler_path = os.path.join(outdir, 'scaler.npz')
+    acc, demux_ms = timed_training(
+        train_demux, output_path=demux_path, steps=TRAIN_STEPS,
+        batch_size=TRAIN_BATCH['demux'], n_per_class=TRAIN_SIZE['demux'],
+        seed=SEED)
+    stats, scaler_ms = timed_training(
+        train_scaler, output_path=scaler_path, steps=TRAIN_STEPS,
+        batch_size=TRAIN_BATCH['scaler'], n_samples=TRAIN_SIZE['scaler'],
+        seed=SEED)
+
+    # the held-out sets train() kept back, drawn again from the seed
+    windows, labels = data.demux_dataset(TRAIN_SIZE['demux'],
+                                         np.random.RandomState(SEED))
+    eval_w = windows[:len(windows) // 4]
+    heads, targets = data.scaler_dataset(TRAIN_SIZE['scaler'],
+                                         np.random.RandomState(SEED))
+    eval_h = heads[:len(heads) // 5]
+
+    # one more step of each, profiled, from the trained parameters
+    batch = TRAIN_BATCH['demux']
+    net = train_demux.DemuxNet.from_params(np.load(demux_path), DEVICE)
+    args = (torch.as_tensor(windows[-batch:], device=DEVICE),
+            torch.as_tensor(labels[-batch:], device=DEVICE),
+            train_demux.NOISE_STDDEV * torch.randn((batch, 300),
+                                                   device=DEVICE),
+            torch.as_tensor(train_demux.DEFAULT_COST_MAT, device=DEVICE))
+    optimizer = layers.make_optimizer(net)
+    demux_prof = profile('demux train step [{}, 300]'.format(batch),
+                         lambda: train_demux.train_step(net, optimizer,
+                                                        *args), host=False)
+    batch = TRAIN_BATCH['scaler']
+    net = train_scaler.ScalerNet.from_params(np.load(scaler_path), DEVICE)
+    std = (targets[-batch:] - targets.mean(0)) / targets.std(0)
+    args = (torch.as_tensor(heads[-batch:], device=DEVICE),
+            torch.as_tensor(std, device=DEVICE))
+    optimizer = layers.make_optimizer(net)
+    scaler_prof = profile('scaler train step [{}, 2000]'.format(batch),
+                          lambda: train_scaler.train_step(net, optimizer,
+                                                          *args), host=False)
+    for name, shape, ms, prof in (
+            ('demux', [TRAIN_BATCH['demux'], 300], demux_ms, demux_prof),
+            ('scaler', [TRAIN_BATCH['scaler'], 2000], scaler_ms,
+             scaler_prof)):
+        wall_ms, busy_ms, launches = prof
+        log('training on the card, {} {}: {:.1f} ms a step (median of the '
+            '{} steps after the first; all steps {}), {} kernel launches a '
+            'step (profiler; {:.1f} ms wall under it, device busy {:.1f} ms, '
+            '{:.1%})'.format(name, shape, float(np.median(ms[1:])),
+                             len(ms) - 1, ', '.join('{:.1f}'.format(t)
+                                                    for t in ms),
+                             launches, wall_ms, busy_ms, busy_ms / wall_ms))
+    log('demux held-out accuracy after {} steps {:.4f}; scaler {}'.format(
+        TRAIN_STEPS, acc, json.dumps(stats)))
+    log(card_line())
+    return demux_path, eval_w, scaler_path, eval_h
+
+
+def serve_trained(demux_path, eval_w, scaler_path, eval_h):
+    """The trained checkpoints in DemuxModel and ScalerModel on the card:
+    kernels 1 to 3 must launch, and the outputs hold within LSTM_ATOL of
+    the training networks' forward (plain recurrences) on the held-out
+    windows and heads, the scaler's in standardised units."""
+    from poreplex_torch import kernels
+    from poreplex_torch.models.demux import DemuxModel
+    from poreplex_torch.models.scaler import ScalerModel
+    from poreplex_torch.training import train_demux, train_scaler
+    demux = DemuxModel(demux_path, device=DEVICE)
+    scaler = ScalerModel(scaler_path, device=DEVICE)
+    windows = torch.as_tensor(eval_w, device=DEVICE)
+    heads = torch.as_tensor(eval_h, device=DEVICE)
+    kernels.reset_launches()
+    with torch.inference_mode():
+        probs = demux(windows)
+        scaling, _ = scaler(heads)
+    torch.cuda.synchronize()
+    launches = {name: kernels.launches[name] for name in
+                ('lstm2_stacked', 'bidirectional_lstm', 'lstm_last')}
+    if not all(launches.values()):
+        raise AssertionError('trained models did not launch {}'.format(
+            launches))
+    with torch.no_grad():
+        want_probs = train_demux.DemuxNet.from_params(
+            np.load(demux_path), DEVICE)(windows)
+        want_std = train_scaler.ScalerNet.from_params(
+            np.load(scaler_path), DEVICE)(heads)
+    xfrm = scaler.xfrm_t
+    demux_err = float((probs - want_probs).abs().max())
+    scaler_err = float(((scaling - xfrm[:, 1]) / xfrm[:, 0] -
+                        want_std).abs().max())
+    log('trained checkpoints through the serving kernels: launches {}; '
+        'demux probabilities of {} held-out windows within {:.3e} of the '
+        'training forward, scaler outputs of {} held-out heads within '
+        '{:.3e} (standardised)'.format(json.dumps(launches), len(eval_w),
+                                       demux_err, len(eval_h), scaler_err))
+    if not (demux_err <= LSTM_ATOL and scaler_err <= LSTM_ATOL):
+        raise AssertionError('trained models on the card differ from the '
+                             'training forward')
+
+
+def libhdf5_line():
+    """Whether the dynamic loader opens libhdf5 here, by the sonames a
+    native FAST5 reader tries; never fails."""
+    import ctypes.util
+    from poreplex_torch.fast5 import HDF5_SONAMES, find_libhdf5
+    found = find_libhdf5()
+    return 'libhdf5 probe: {} (tried {}; find_library("hdf5"): {})'.format(
+        'dlopen of {} succeeded'.format(found) if found else
+        'no soname opened', ', '.join(HDF5_SONAMES),
+        ctypes.util.find_library('hdf5'))
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -952,6 +1178,11 @@ def main():
                 lambda: analyzer.engine.run_stage1_flat(
                     stage1_inputs[:BATCH]))
         profile_batch(analyzer, list(reads.values())[:BATCH])
+
+    training_step_parity()
+    with tempfile.TemporaryDirectory() as outdir:
+        serve_trained(*train_on_card(outdir))
+    log(libhdf5_line())
 
     kernels_line = []
     seen = set()

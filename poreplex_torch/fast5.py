@@ -6,12 +6,30 @@ h5py is imported only inside the functions that open FAST5 files, so the
 rest of the port runs where h5py is not installed.
 """
 
+import ctypes
 import os.path
 
 import numpy as np
 from scipy.signal import medfilt
 
-__all__ = ['get_read_ids', 'Fast5Reader', 'Fast5FilePool', 'EventTable']
+__all__ = ['get_read_ids', 'Fast5Reader', 'Fast5FilePool', 'EventTable',
+           'find_libhdf5']
+
+# the sonames a native FAST5 reader dlopens, in the order poreplex-tpu's
+# reader tries them
+HDF5_SONAMES = ('libhdf5_serial.so.103', 'libhdf5_serial.so',
+                'libhdf5.so.103', 'libhdf5.so')
+
+
+def find_libhdf5():
+    """The first of HDF5_SONAMES that the dynamic loader opens, or None."""
+    for soname in HDF5_SONAMES:
+        try:
+            ctypes.CDLL(soname)
+        except OSError:
+            continue
+        return soname
+    return None
 
 
 def _read_attrs(handle, path, names):

@@ -12,7 +12,6 @@ from .. import weights
 from ..config import resolve_device
 from ..kernels import lstm as lstm_kernels
 from ..ops import rnn
-from .scaler import parameter_dicts
 
 PAD_FILLER = -1000.0   # left-pad filler for short adapters
 
@@ -22,8 +21,8 @@ class DemuxModel(nn.Module):
     def __init__(self, model_path, number_of_decoy_labels=1, device='cuda'):
         super().__init__()
         data = np.load(model_path)
-        parameter_dicts(self, weights.demux_state_dict(data),
-                        weights.DEMUX_LAYERS)
+        weights.parameter_dicts(self, weights.demux_state_dict(data),
+                                weights.DEMUX_LAYERS)
         # phred -> minimum softmax score
         self.calibration_table = np.asarray(data['calibration'], np.float64)
         self.loss_weights = np.asarray(data['loss_weights'])

@@ -15,23 +15,14 @@ from ..kernels import lstm as lstm_kernels
 from ..ops import rnn
 
 
-def parameter_dicts(module, state, layers):
-    """Attach ``state`` ({'<layer>.<key>': tensor}) to ``module`` as one
-    frozen ParameterDict per layer."""
-    for layer, keys in layers.items():
-        setattr(module, layer, nn.ParameterDict({
-            key: nn.Parameter(state['{}.{}'.format(layer, key)],
-                              requires_grad=False) for key in keys}))
-
-
 class ScalerModel(nn.Module):
 
     def __init__(self, model_path, qc_threshold=0.02, input_length=None,
                  device='cuda'):
         super().__init__()
         data = np.load(model_path)
-        parameter_dicts(self, weights.scaler_state_dict(data),
-                        weights.SCALER_LAYERS)
+        weights.parameter_dicts(self, weights.scaler_state_dict(data),
+                                weights.SCALER_LAYERS)
         meta = json.loads(bytes(data['meta']).decode())
         # a shortened head window is for reduced-size test configurations;
         # its predictions differ from the full-length model's

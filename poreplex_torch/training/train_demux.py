@@ -1,0 +1,188 @@
+#!/usr/bin/env python3
+"""Demultiplexer training: BiLSTM(48) -> LSTM(64) -> Dense(5, softmax) with
+the cost-matrix-weighted crossentropy, phred calibration table computation,
+and an npz checkpoint that ``models.demux.DemuxModel`` (and poreplex-tpu's)
+loads.
+
+The PyTorch counterpart of poreplex-tpu's ``training/train_demux.py``: the
+network runs the plain differentiable recurrences of ``ops/rnn.py`` under
+autograd, on the CUDA device unless the caller asks for the CPU, with
+``torch.optim.Adam`` (optax.adam's formula). For the same seed it draws the
+same dataset and the same batches as the JAX trainer; initialisation and
+noise come from ``torch.Generator``s seeded as the JAX trainer seeds its
+keys, so they agree in distribution, not in value.
+
+    python -m poreplex_torch.training.train_demux -o demux.npz [--cpu]
+"""
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import weights
+from ..config import LATER_SLICES, resolve_device
+from ..ops import rnn
+from . import layers, losses
+from .calibration import compute_calibration_table
+from .data import demux_dataset
+
+NUM_CLASSES = 5
+DEFAULT_COST_MAT = np.array(
+    [[1.0] * 5] + [[1.0, 2.0, 2.0, 2.0, 2.0]] * 4, np.float32)
+NOISE_STDDEV = 0.05
+LABEL_IDS = {'decoy': 0, 'BC1': 1, 'BC2': 2, 'BC3': 3, 'BC4': 4}
+
+
+def init_params(generator, hidden1=48, hidden2=64):
+    """Nested {layer: {key: tensor}} on the generator's device."""
+    return {
+        'bilstm_fwd': layers.lstm_params(generator, 1, hidden1),
+        'bilstm_bwd': layers.lstm_params(generator, 1, hidden1),
+        'lstm2': layers.lstm_params(generator, 2 * hidden1, hidden2),
+        'dense': layers.dense_params(generator, hidden2, NUM_CLASSES),
+    }
+
+
+class DemuxNet(nn.Module):
+    """The demux network with trainable parameters in Keras layout, one
+    ParameterDict per checkpoint layer."""
+
+    def __init__(self, state):
+        super().__init__()
+        weights.parameter_dicts(self, state, weights.DEMUX_LAYERS)
+
+    @classmethod
+    def from_params(cls, params, device=None):
+        """Trainable copies of ``params``: nested (``init_params`` of either
+        package) or flat (a checkpoint), numpy or tensors."""
+        return cls(weights.demux_state_dict(params, device,
+                                            requires_grad=True))
+
+    def forward(self, windows, noise=None):
+        """windows [B, T] -> probabilities [B, 5]; ``noise`` [B, T] is the
+        train-time Gaussian noise, added first like the reference model's
+        GaussianNoise layer."""
+        x = windows if noise is None else windows + noise
+        h = rnn.bidirectional_lstm(self.bilstm_fwd, self.bilstm_bwd,
+                                   x[..., None])
+        h = rnn.lstm(self.lstm2, h, return_sequences=False)
+        return torch.softmax(rnn.dense(self.dense, h), dim=-1)
+
+
+def loss(net, windows, labels, cost_mat, noise=None):
+    probs = net(windows, noise)
+    onehot = F.one_hot(labels.long(), NUM_CLASSES).to(probs.dtype)
+    return losses.weighted_categorical_crossentropy(onehot, probs, cost_mat)
+
+
+def train_step(net, optimizer, windows, labels, noise, cost_mat):
+    """One Adam step on the weighted crossentropy; returns the loss before
+    the update."""
+    optimizer.zero_grad(set_to_none=True)
+    value = loss(net, windows, labels, cost_mat, noise)
+    value.backward()
+    optimizer.step()
+    return value.detach()
+
+
+def save_checkpoint(path, net, calibration, cost_mat):
+    flat = weights.checkpoint_arrays(net, weights.DEMUX_LAYERS)
+    flat['calibration'] = np.asarray(calibration, np.float64)
+    flat['loss_weights'] = np.asarray(cost_mat, np.float32)
+    np.savez(path, **flat)
+
+
+def train(output_path, steps=300, batch_size=64, n_per_class=400, seed=0,
+          learning_rate=1e-3, eval_fraction=0.25, log=print, data=None,
+          device='cuda'):
+    """data: optional (windows, labels), e.g. from data.dumps_dataset over
+    adapter-signal dump inventories of barcoded control runs; defaults to
+    the synthetic set. Returns the held-out accuracy."""
+    device = resolve_device(device)
+    if device.type == 'cuda':
+        rnn.use_full_fp32()
+    rng = np.random.RandomState(seed)
+    windows, labels = data if data is not None else \
+        demux_dataset(n_per_class, rng)
+    n_eval = int(len(windows) * eval_fraction)
+    train_w, train_l = windows[n_eval:], labels[n_eval:]
+    eval_w, eval_l = windows[:n_eval], labels[:n_eval]
+
+    cost_mat = torch.as_tensor(DEFAULT_COST_MAT, device=device)
+    net = DemuxNet.from_params(init_params(
+        torch.Generator(device=device).manual_seed(seed)))
+    optimizer = layers.make_optimizer(net, learning_rate)
+    noise_gen = torch.Generator(device=device).manual_seed(seed + 1)
+
+    for step in range(steps):
+        idx = rng.randint(0, len(train_w), batch_size)
+        batch = torch.as_tensor(np.asarray(train_w[idx], np.float32),
+                                device=device)
+        noise = NOISE_STDDEV * torch.randn(batch.shape, generator=noise_gen,
+                                           device=device)
+        value = train_step(net, optimizer, batch,
+                           torch.as_tensor(train_l[idx], device=device),
+                           noise, cost_mat)
+        if step % 50 == 0 or step == steps - 1:
+            log('step {:4d} loss {:.4f}'.format(step, float(value)))
+
+    with torch.no_grad():
+        probs = net(torch.as_tensor(np.asarray(eval_w, np.float32),
+                                    device=device)).cpu().numpy()
+    pred = probs.argmax(axis=1)
+    scores = probs.max(axis=1)
+    acc = float((pred == eval_l).mean())
+    # calibration uses barcode-vs-barcode errors only (decoys excluded,
+    # reference: compute_score_calibration_table.py:63-66)
+    mask = (eval_l > 0) & (pred > 0)
+    calibration = compute_calibration_table(scores[mask],
+                                            (pred == eval_l)[mask])
+    save_checkpoint(output_path, net, calibration, DEFAULT_COST_MAT)
+    log('eval accuracy {:.4f}; checkpoint -> {}'.format(acc, output_path))
+    return acc
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument('-o', '--output', required=True)
+    parser.add_argument('--steps', type=int, default=300)
+    parser.add_argument('--batch-size', type=int, default=64)
+    parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--dumps', action='append', default=[],
+                        metavar='LABEL=INVENTORY_H5',
+                        help='adapter-signal dump inventory of a barcoded '
+                             'control run (--dump-adapter-signals output); '
+                             'LABEL one of decoy/BC1..BC4; repeatable — '
+                             'when given, trains on the dumps instead of '
+                             'synthetic data')
+    parser.add_argument('--data-parallel', default=False,
+                        action='store_true',
+                        help='shard training batches over all local devices '
+                             '(not ported yet)')
+    parser.add_argument('--cpu', default=False, action='store_true',
+                        help='train on the CPU instead of the CUDA device')
+    args = parser.parse_args(argv)
+    if args.data_parallel:
+        raise NotImplementedError(
+            'data-parallel training is not ported yet; it waits for '
+            + LATER_SLICES['num_nodes'])
+
+    data = None
+    if args.dumps:
+        from .data import dumps_dataset
+        runs = []
+        for spec in args.dumps:
+            label, path = spec.split('=', 1)
+            runs.append((path, LABEL_IDS[label]))
+        data = dumps_dataset(runs, rng=np.random.RandomState(args.seed))
+
+    train(args.output, steps=args.steps, batch_size=args.batch_size,
+          seed=args.seed, data=data, device='cpu' if args.cpu else 'cuda')
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,14 +1,18 @@
 """Network and HMM parameters as the port's state dicts.
 
-Inputs are numpy arrays in the JAX package's layout: a mapping of
-``'<layer>/<key>'`` names (the layout of the preset ``.npz`` bundles,
-Keras gate order [i, f, c, o], used verbatim), and for the HMM the five
-dense arrays poreplex-tpu's ``SegmentationHMM`` builds from the preset's
-state list. The port's own model loading goes through these functions.
+Inputs are arrays (numpy, or tensors) in the JAX package's layout: a
+mapping of ``'<layer>/<key>'`` names (the layout of the preset ``.npz``
+bundles and of the trainers' checkpoints, Keras gate order [i, f, c, o],
+used verbatim) or the nested ``{layer: {key: array}}`` parameters of a
+trainer's ``init_params``, and for the HMM the five dense arrays
+poreplex-tpu's ``SegmentationHMM`` builds from the preset's state list.
+The port's model loading and its trainers go through these functions, and
+``checkpoint_arrays`` turns a network back into the flat layout.
 """
 
 import numpy as np
 import torch
+from torch import nn
 
 LSTM_KEYS = ('kernel', 'recurrent', 'bias')
 DENSE_KEYS = ('kernel', 'bias')
@@ -19,23 +23,57 @@ HMM_KEYS = ('log_start', 'log_trans', 'mus', 'sigmas', 'logws')
 NEG_INF = -1e30
 
 
-def _tensor(array):
-    return torch.tensor(np.asarray(array, dtype=np.float32))
+def _tensor(value, device=None, requires_grad=False):
+    """A float32 copy of an array or tensor, on ``device`` (a tensor's own
+    device if None)."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().to(device=device, dtype=torch.float32, copy=True)
+    else:
+        t = torch.tensor(np.asarray(value, dtype=np.float32), device=device)
+    return t.requires_grad_(requires_grad)
 
 
-def _state_dict(arrays, layers):
-    return {'{}.{}'.format(layer, key): _tensor(arrays[layer + '/' + key])
+def _array(params, layer, key):
+    """params['<layer>/<key>'] of a flat mapping, else params[layer][key]."""
+    name = layer + '/' + key
+    return params[name] if name in params else params[layer][key]
+
+
+def _state_dict(params, layers, device, requires_grad):
+    return {'{}.{}'.format(layer, key):
+            _tensor(_array(params, layer, key), device, requires_grad)
             for layer, keys in layers.items() for key in keys}
 
 
-def scaler_state_dict(arrays):
-    """{'lstm1.kernel': ..., 'lstm2.recurrent': ..., 'dense.bias': ...}"""
-    return _state_dict(arrays, SCALER_LAYERS)
+def scaler_state_dict(params, device=None, requires_grad=False):
+    """{'lstm1.kernel': ..., 'lstm2.recurrent': ..., 'dense.bias': ...}:
+    float32 tensors on ``device``, leaves that require grad if asked."""
+    return _state_dict(params, SCALER_LAYERS, device, requires_grad)
 
 
-def demux_state_dict(arrays):
+def demux_state_dict(params, device=None, requires_grad=False):
     """{'bilstm_fwd.kernel': ..., 'lstm2.bias': ..., 'dense.kernel': ...}"""
-    return _state_dict(arrays, DEMUX_LAYERS)
+    return _state_dict(params, DEMUX_LAYERS, device, requires_grad)
+
+
+def parameter_dicts(module, state, layers):
+    """Attach ``state`` ({'<layer>.<key>': tensor}) to ``module`` as one
+    ParameterDict per layer; a parameter requires grad where its tensor
+    does."""
+    for layer, keys in layers.items():
+        tensors = {key: state['{}.{}'.format(layer, key)] for key in keys}
+        setattr(module, layer, nn.ParameterDict({
+            key: nn.Parameter(t, requires_grad=t.requires_grad)
+            for key, t in tensors.items()}))
+
+
+def checkpoint_arrays(module, layers):
+    """The module's parameters as the flat ``'<layer>/<key>'`` float32
+    numpy arrays a checkpoint holds, in the order of ``layers``."""
+    return {'{}/{}'.format(layer, key):
+            getattr(module, layer)[key].detach().cpu().numpy().astype(
+                np.float32)
+            for layer, keys in layers.items() for key in keys}
 
 
 def hmm_arrays(spec):

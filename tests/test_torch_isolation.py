@@ -14,7 +14,7 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = REPO / 'poreplex_torch'
-FORBIDDEN = ('jax', 'jaxlib', 'poreplex_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'optax', 'poreplex_tpu')
 
 
 def port_modules():
@@ -29,18 +29,36 @@ def port_sources():
                                             REPO / 'kernel_sass.py']
 
 
-def test_importing_every_module_loads_no_jax():
+def loaded_after_importing_the_port(packages, missing=()):
+    """The modules of ``packages`` loaded once every module of the port is
+    imported, in a fresh interpreter where the packages ``missing`` cannot
+    be imported."""
     code = ('import importlib, sys\n'
+            'sys.modules.update(dict.fromkeys({!r}))\n'
             'for name in sys.argv[1:]:\n'
             '    importlib.import_module(name)\n'
-            'bad = sorted(m for m in sys.modules if m.split(".")[0] in {!r})\n'
-            'print(" ".join(bad))\n').format(FORBIDDEN)
+            'bad = sorted(m for m, module in sys.modules.items()\n'
+            '             if module and m.split(".")[0] in {!r})\n'
+            'print(" ".join(bad))\n').format(missing, packages)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, '-c', code] + list(port_modules()),
                          capture_output=True, text=True, cwd=str(REPO),
                          env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == ''
+    return out.stdout.strip()
+
+
+def test_importing_every_module_loads_no_jax():
+    assert 'poreplex_torch.training.train_demux' in port_modules()
+    assert loaded_after_importing_the_port(FORBIDDEN) == ''
+
+
+def test_importing_every_module_loads_no_h5py():
+    """The card's machine has no h5py: the port imports it only inside the
+    functions that open files, so every module imports without it."""
+    assert loaded_after_importing_the_port(('h5py',)) == ''
+    assert loaded_after_importing_the_port(('h5py',), missing=('h5py',)) \
+        == ''
 
 
 def test_sources_import_no_jax():
