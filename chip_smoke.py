@@ -40,7 +40,16 @@
 4. profiles one stage-1 batch and one whole 256-read batch: the device's
    busy share, the ten kernels with the most device time and the port's
    own kernels;
-5. training at full widths: one demux step at [64, 300] and one scaler
+5. runs the same 512 reads, from memory, through the port's command line
+   (commandline.main with the main path's options, batches of 256): every
+   kernel must launch; prints reads/s from main entered to main returned
+   and the stage timers; each read's summary row and FASTQ record must
+   equal the main path's and .processed-reads must list every okay read;
+   resumed over the same reads it must analyse only the reads that were
+   not okay, and over the okay reads it must launch no kernel and leave a
+   header-only summary; then ``python -m poreplex_torch --version`` must
+   exit with 0;
+6. training at full widths: one demux step at [64, 300] and one scaler
    step at [8, 2000] on the card held against the same step on the CPU
    (loss within 1e-5 relative, every gradient within 1e-4 of its tensor's
    largest element); both trainers through train() for a few steps at
@@ -49,7 +58,7 @@
    where kernels 1 to 3 must launch and agree within 5e-5 with the
    training forward on the held-out windows and heads; then whether
    libhdf5 can be dlopened (a probe, never a failure);
-6. prints the run's time, a JSON line of the kernels, the card's name and
+7. prints the run's time, a JSON line of the kernels, the card's name and
    power limit, then {"ok": true, ...} last.
 
 Any failure raises and exits non-zero before the last line is printed.
@@ -617,7 +626,7 @@ def run_main_path(config, rng):
     GLOBAL_TIMER.counts.clear()
     kernels.reset_launches()
     t1 = time.perf_counter()
-    results = analyzer.process_batch(None, (results, records))
+    results, _ = analyzer.process_batch(None, (results, records))
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
     summary_writer = SequencingSummaryWriter(
@@ -818,7 +827,8 @@ def check_polya_unsplit_against_cpu(config, results, reads, stage1_run,
     if stopped or [rec.read_id for rec in records] != ids:
         raise AssertionError('CPU check: reads did not load as on the card')
     t0 = time.perf_counter()
-    got = {r['read_id']: r for r in cpu.process_batch(None, ([], records))}
+    got, _ = cpu.process_batch(None, ([], records))
+    got = {r['read_id']: r for r in got}
     cpu_s = time.perf_counter() - t0
     card = {r['read_id']: r for r in results}
     tails = unsplit = 0
@@ -844,6 +854,156 @@ def check_polya_unsplit_against_cpu(config, results, reads, stage1_run,
             len(ids), json.dumps({str(k): v for k, v in
                                   sorted(per_bucket.items())}),
             tails, unsplit, cpu_s))
+
+
+def summary_rows(outdir):
+    """(header, {read id: row}) of a sequencing_summary.txt."""
+    with open(os.path.join(outdir, 'sequencing_summary.txt')) as f:
+        rows = f.read().splitlines()
+    return rows[0], {row.split('\t')[1]: row for row in rows[1:]}
+
+
+def fastq_records(outdir):
+    """{read id: (FASTQ file, record)} of every FASTQ stream."""
+    records = {}
+    for root, _, files in os.walk(os.path.join(outdir, 'fastq')):
+        for fn in files:
+            path = os.path.join(root, fn)
+            with gzip.open(path, 'rt') as f:
+                lines = f.read().splitlines()
+            for i in range(0, len(lines), 4):
+                records[lines[i][1:]] = (os.path.relpath(path, outdir),
+                                         lines[i:i + 4])
+    return records
+
+
+def run_cli(argv, source):
+    """commandline.main on argv from ``source`` with the launch counts and
+    stage timers reset just before: (result, wall seconds from main
+    entered to main returned, launches, stage timers)."""
+    from poreplex_torch import commandline, kernels
+    from poreplex_torch.utils import GLOBAL_TIMER
+    args = commandline.parse_args(argv)
+    GLOBAL_TIMER.totals.clear()
+    GLOBAL_TIMER.counts.clear()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = commandline.main(args, source=source)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return (result, wall_s, dict(kernels.launches),
+            GLOBAL_TIMER.snapshot())
+
+
+def session_through_cli(config, results, reads, main_outdir, card):
+    """The main path's reads, from memory, through the port's command line
+    on the card at batches of BATCH (two batches), with the main path's
+    options: every kernel of the main path launches, the outputs pass
+    check_outputs and each read's summary row and FASTQ record equal the
+    main path's; the manifest lists every okay read. Resumed over the same
+    output, as in poreplex-tpu the summary is written anew: a run over the
+    same reads holds the rows of the reads that were not okay, analysed
+    again, and a run over the okay reads launches no kernel, keeps the
+    manifest and leaves a header-only summary. ``python -m poreplex_torch
+    --version`` exits with 0."""
+    from poreplex_torch.pipeline.source import MemorySource
+    source = MemorySource(list(reads.values()))
+    with tempfile.TemporaryDirectory() as tmp:
+        indir, outdir = os.path.join(tmp, 'in'), os.path.join(tmp, 'out')
+        os.makedirs(indir)
+        argv = ['-i', indir, '-o', outdir, '-y', '-q', '--barcoding',
+                '--barcoding-quality-filter', str(BARCODE_PHRED), '--polya',
+                '--filter-chimera', '--trim-adapter', '--batch-size',
+                str(BATCH), '--device-batch-size', str(BATCH)]
+        result, wall_s, launches, stages = run_cli(argv, source)
+        if result is None:
+            raise AssertionError('the CLI session did not finish')
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError('the CLI session never launched: {}'.format(
+                missing))
+        batches = stages['B:device_stage1']['calls']
+        if batches != N_READS // BATCH:
+            raise AssertionError('the CLI session ran {} batches'.format(
+                batches))
+        log('session through the CLI: {} reads in {} batches, {:.1f} reads/s '
+            '({:.3f} s from main entered to main returned, writers '
+            'included); {}'.format(N_READS, batches, N_READS / wall_s, wall_s,
+                                   card))
+        log('session through the CLI: launches', json.dumps(launches))
+        log('session through the CLI: stage timers', json.dumps(stages))
+
+        check_outputs(config, results, outdir)
+        header, rows = summary_rows(outdir)
+        ref_header, ref_rows = summary_rows(main_outdir)
+        if header != ref_header or rows != ref_rows:
+            differ = sorted(k for k in set(rows) | set(ref_rows)
+                            if rows.get(k) != ref_rows.get(k))
+            raise AssertionError('summary rows of {} reads differ from the '
+                                 'main path\'s, e.g. {}'.format(
+                                     len(differ), differ[:3]))
+        fastq, ref_fastq = fastq_records(outdir), fastq_records(main_outdir)
+        if fastq != ref_fastq:
+            differ = sorted(k for k in set(fastq) | set(ref_fastq)
+                            if fastq.get(k) != ref_fastq.get(k))
+            raise AssertionError('FASTQ records of {} reads differ from the '
+                                 'main path\'s, e.g. {}'.format(
+                                     len(differ), differ[:3]))
+        manifest_path = os.path.join(outdir, '.processed-reads')
+        with open(manifest_path, 'rb') as f:
+            manifest = f.read()
+        listed = [line.split('\t') for line in manifest.decode().splitlines()]
+        okay = sorted(r['read_id'] for r in results if r['status'] == 'okay')
+        if sorted(read_id for _, read_id in listed) != okay or any(
+                name != MemorySource.FILENAME for name, _ in listed):
+            raise AssertionError('.processed-reads does not list the {} okay '
+                                 'reads'.format(len(okay)))
+        if not os.path.isfile(os.path.join(outdir, 'poreplex.log')):
+            raise AssertionError('no poreplex.log')
+        log('session through the CLI: {} summary rows and {} FASTQ records '
+            'equal to the main path\'s; {} okay reads in .processed-reads'
+            .format(len(rows), len(fastq), len(listed)))
+
+        # the manifest holds the okay reads only, as poreplex-tpu's does: a
+        # resumed run over the same source analyses the others again, and
+        # one over the okay reads alone analyses none
+        again = sorted(set(ref_rows) - set(okay))
+        result, resume_s, launches, _ = run_cli(argv + ['--resume'], source)
+        resumed_header, resumed_rows = summary_rows(outdir)
+        if result is None or resumed_header != header or \
+                resumed_rows != {k: ref_rows[k] for k in again}:
+            raise AssertionError('the resumed run wrote {} rows, not the {} '
+                                 'reads that were not okay'.format(
+                                     len(resumed_rows), len(again)))
+        log('session through the CLI: resumed over the same reads in {:.3f} '
+            's: the {} reads that were not okay analysed again (rows equal '
+            'to the main path\'s; launches {})'.format(
+                resume_s, len(again), json.dumps(launches)))
+        done = MemorySource([reads[read_id] for read_id in okay])
+        result, resume_s, launches, _ = run_cli(argv + ['--resume'], done)
+        resumed_header, resumed_rows = summary_rows(outdir)
+        if result is None or any(launches.values()):
+            raise AssertionError('the resumed run: result {}, launches '
+                                 '{}'.format(result, launches))
+        with open(manifest_path, 'rb') as f:
+            if f.read() != manifest:
+                raise AssertionError('the resumed runs changed the manifest')
+        if resumed_header != header or resumed_rows:
+            raise AssertionError('the resumed run\'s summary holds {} rows'
+                                 .format(len(resumed_rows)))
+        log('session through the CLI: resumed over the {} okay reads in '
+            '{:.3f} s, no launch, manifest unchanged, header-only summary '
+            '(as poreplex-tpu\'s)'.format(len(okay), resume_s))
+
+    out = subprocess.run([sys.executable, '-m', 'poreplex_torch',
+                          '--version'], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         timeout=120)
+    if out.returncode != 0:
+        raise AssertionError('python -m poreplex_torch --version exited {}: '
+                             '{}'.format(out.returncode, out.stderr))
+    log('python -m poreplex_torch --version: {}'.format(
+        out.stdout.splitlines()[0]))
 
 
 def polya_summary(results, timings, reads, polya_blens):
@@ -1178,6 +1338,8 @@ def main():
                 lambda: analyzer.engine.run_stage1_flat(
                     stage1_inputs[:BATCH]))
         profile_batch(analyzer, list(reads.values())[:BATCH])
+        del analyzer
+        session_through_cli(config, results, reads, outdir, card)
 
     training_step_parity()
     with tempfile.TemporaryDirectory() as outdir:

@@ -1,9 +1,10 @@
 """poreplex-torch: the PyTorch/CUDA port of poreplex-tpu.
 
 Same pipeline, same outputs: signal scaling, HMM segmentation, barcode
-demultiplexing, adapter trimming and the FASTQ / sequencing-summary
-writers, with the recurrences and the segmentation Viterbi run as
-hand-written CUDA kernels for Hopper (``csrc/``). Every entry point runs on
+demultiplexing, poly(A) tails, the unsplit-read filter, adapter trimming
+and every output sink that needs no alignment, behind the same command
+line (``python -m poreplex_torch``), with every Pallas kernel of
+poreplex-tpu run as a hand-written CUDA kernel for Hopper (``csrc/``). Every entry point runs on
 the CUDA device unless the caller asks for ``device='cpu'``, where the
 plain PyTorch versions of the kernels run instead.
 """

@@ -3,8 +3,8 @@
 The preset ``presets/rna-r941.json`` is the JSON form of poreplex-tpu's
 ``rna-r941.yaml`` (the same numeric knobs and HMM specifications); JSON
 because the port's runtime has no YAML parser. Options that belong to
-pipeline stages the port does not carry yet raise ``NotImplementedError``
-instead of being ignored.
+pipeline stages the port does not carry yet (``LATER_SLICES``) raise
+``NotImplementedError`` instead of being ignored.
 """
 
 import copy
@@ -78,13 +78,24 @@ def setup_output_name_mapping(config):
 
 DEFAULT_OPTIONS = dict(
     quiet=True,
+    interactive=False,       # ask before clearing a non-empty output dir
+    parallel=1,              # host ingest workers (kept for the CLI)
+    live=False,
+    analysis_start_delay=0,  # seconds before a live batch is analysed
+    contig_aliases=None,
     barcoding=False,
     barcoding_quality_filter=18,
     batch_chunk_size=256,    # reads per analyzer batch
     fastq_output=True,
+    fast5_output=False,
+    fast5_batch_size=4000,   # reads per repacked FAST5 file
+    nanopolish_output=False,
+    dump_adapter_signals=False,
+    dump_basecalls=False,
     trim_adapter=False,
     minimum_sequence_length=10,
     nobasecall_stop_trigger=1000,
+    resume=False,
     device_batch_size=256,   # rows per stage-1 launch
     wire_precision='exact',  # 'exact' u16 | 'fast' u8 per-read affine
     device='cuda',           # 'cuda' | 'cuda:N' | 'cpu'
@@ -92,13 +103,7 @@ DEFAULT_OPTIONS = dict(
     filter_unsplit_reads=False,
     # stages of later slices of the port: must stay off
     albacore_onthefly=False,
-    live=False,
     dashboard=False,
-    resume=False,
-    fast5_output=False,
-    nanopolish_output=False,
-    dump_adapter_signals=False,
-    dump_basecalls=False,
     minimap2_index=None,
     num_nodes=None,
 )
@@ -106,13 +111,7 @@ DEFAULT_OPTIONS = dict(
 # option -> the part of the port that will carry it
 LATER_SLICES = {
     'albacore_onthefly': 'the albacore basecalling slice',
-    'live': 'the live-mode session slice',
-    'dashboard': 'the live-mode session slice',
-    'resume': 'the live-mode session slice',
-    'fast5_output': 'the FAST5 output slice',
-    'nanopolish_output': 'the nanopolish output slice',
-    'dump_adapter_signals': 'the dump-writer slice',
-    'dump_basecalls': 'the dump-writer slice',
+    'dashboard': 'the alignment slice',
     'minimap2_index': 'the alignment slice',
     'num_nodes': 'the multi-GPU slice',
 }
@@ -125,8 +124,8 @@ def resolve_device(device):
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(
-            'CUDA is not available; pass device="cpu" to run the plain '
-            'PyTorch path on the CPU')
+            'CUDA is not available; pass device="cpu" (--cpu on the command '
+            'line) to run the plain PyTorch path on the CPU')
     if device.type not in ('cuda', 'cpu'):
         raise ValueError('unsupported device {}'.format(device))
     return device
@@ -138,6 +137,9 @@ def build_config(inputdir, outputdir, preset='', **options):
     config.update(copy.deepcopy(DEFAULT_OPTIONS))
     config['inputdir'] = inputdir
     config['outputdir'] = outputdir
+    config['tmpdir'] = options.pop('tmpdir', None) or os.path.join(
+        outputdir, 'tmp')
+    config['cleanup_tmpdir'] = False
     for key, value in options.items():
         if key not in config:
             raise KeyError('Unknown config option: {}'.format(key))

@@ -1,6 +1,7 @@
 """FAST5 (HDF5) reading: single- and multi-read layouts, raw DAC signal and
-its picoampere affine, and the basecall group with albacore ``Events`` or
-guppy ``Move`` tables (events rebuilt from fixed-stride signal blocks).
+its picoampere affine, the basecall group with albacore ``Events`` or
+guppy ``Move`` tables (events rebuilt from fixed-stride signal blocks), and
+the copy of a read's subtree into a multi-read output file.
 
 h5py is imported only inside the functions that open FAST5 files, so the
 rest of the port runs where h5py is not installed.
@@ -13,7 +14,7 @@ import numpy as np
 from scipy.signal import medfilt
 
 __all__ = ['get_read_ids', 'Fast5Reader', 'Fast5FilePool', 'EventTable',
-           'find_libhdf5']
+           'DuplicatedReadError', 'find_libhdf5']
 
 # the sonames a native FAST5 reader dlopens, in the order poreplex-tpu's
 # reader tries them
@@ -72,6 +73,9 @@ class EventTable:
             return len(vals)
         return 0
 
+    def copy(self):
+        return EventTable(self._cols)
+
 
 class Fast5FilePool:
     """Refcounted h5py.File handles, so the reads of one multi-read file in
@@ -96,6 +100,10 @@ class Fast5FilePool:
         if entry[1] <= 0:
             entry[0].close()
             del self._files[path]
+
+
+class DuplicatedReadError(Exception):
+    pass
 
 
 def get_read_ids(filename, basedir=None):
@@ -323,3 +331,30 @@ class Fast5Reader:
         events['stdv'] = blocks.std(axis=1)
         events['length'] = stride
         return events
+
+    def copyto(self, dstfile):
+        """Copy this read's subtree into an open multi-read output file as
+        ``read_<id>``; a read already there raises DuplicatedReadError."""
+        nodepath = 'read_' + self.read_id
+
+        if self.is_multiread:
+            try:
+                dstfile.copy(self.handle[nodepath], dstfile, nodepath)
+                return
+            except (RuntimeError, ValueError) as exc:
+                if 'already exists' in str(exc):
+                    raise DuplicatedReadError(str(exc))
+                raise
+
+        if nodepath in dstfile:
+            raise DuplicatedReadError(
+                "Duplicated read '{}' found.".format(self.read_id))
+
+        dstgrp = dstfile.create_group(nodepath)
+        dstgrp.attrs['run_id'] = self.run_id
+        dstgrp.copy(self.handle[self.read_node], 'Raw')
+        for grpname, grpobj in self.handle['UniqueGlobalKey'].items():
+            dstgrp.copy(grpobj, dstgrp, grpname)
+        for grpname, grpobj in self.handle.items():
+            if grpname not in ('Raw', 'UniqueGlobalKey'):
+                dstgrp.copy(grpobj, grpname)

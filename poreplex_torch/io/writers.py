@@ -1,13 +1,22 @@
 """Output writers with upstream poreplex's formats: per-(label, barcode)
-BGZF FASTQ streams with adapter trimming, sequencing_summary.txt, and the
-end-of-run count matrix by label x status x barcode."""
+BGZF FASTQ streams with adapter trimming, rotated multi-read FAST5 copies,
+sequencing_summary.txt, the nanopolish FASTA and readdb, the adapter-signal
+and basecalled-event dumps with their end-of-run inventories, and the
+end-of-run count matrix by label x status x barcode.
+
+h5py is imported only inside the functions that write HDF5 files."""
 
 import logging
 import os
 from collections import defaultdict
 from functools import partial
+from glob import glob
 from threading import Lock
 
+import numpy as np
+
+from .. import OUTPUT_NAME_FAILED
+from ..fast5 import Fast5Reader, DuplicatedReadError
 from ..utils import ensure_dir_exists
 from .bgzf import BGZFWriter
 
@@ -46,6 +55,71 @@ class FASTQWriter:
                     self.streams[output_name].write(formatted)
 
 
+class _RotatingFast5Series:
+    """One (label, barcode) stream of multi-read FAST5 files: a new
+    ``<name>_<k>.fast5`` is opened lazily and rolled over every
+    ``reads_per_file`` reads."""
+
+    def __init__(self, path_template, reads_per_file):
+        self.path_template = path_template
+        self.reads_per_file = reads_per_file
+        self.handle = None
+        self.fileno = 0
+        self.reads_in_file = 0
+
+    def current(self):
+        import h5py
+        if self.handle is None or self.reads_in_file >= self.reads_per_file:
+            self.close()
+            self.handle = h5py.File(self.path_template.format(self.fileno),
+                                    'w')
+            self.fileno += 1
+            self.reads_in_file = 0
+        self.reads_in_file += 1
+        return self.handle
+
+    def close(self):
+        if self.handle is not None:
+            self.handle.close()
+            self.handle = None
+
+
+class FAST5Writer:
+    """Multi-read FAST5 repacking, one rotating file series per output
+    name."""
+
+    def __init__(self, output_dir, output_layout, input_dir, batch_size=4000):
+        self.input_dir = input_dir
+        self.lock = Lock()
+        self.series = {}
+        for int_name, name in output_layout.items():
+            template = os.path.join(output_dir, 'fast5',
+                                    name + '_{}.fast5')
+            ensure_dir_exists(template)
+            self.series[int_name] = _RotatingFast5Series(template, batch_size)
+
+    def close(self):
+        for series in self.series.values():
+            series.close()
+
+    def transfer_reads(self, procresult):
+        with self.lock:
+            for entry in procresult:
+                output_name = (entry.get('label', OUTPUT_NAME_FAILED),
+                               entry.get('barcode'))
+                input_name = os.path.join(self.input_dir, entry['filename'])
+                try:
+                    reader = Fast5Reader(input_name, entry['read_id'])
+                except Exception:
+                    continue       # vanished or corrupt input: skipped
+                try:
+                    reader.copyto(self.series[output_name].current())
+                except DuplicatedReadError:
+                    pass
+                finally:
+                    reader.close()
+
+
 class SequencingSummaryWriter:
 
     SUMMARY_OUTPUT_FIELDS = [
@@ -68,6 +142,20 @@ class SequencingSummaryWriter:
         self.polya_enabled = bool(config['measure_polya'])
         if self.polya_enabled:
             self.output_fields.append('polya_dwell')
+
+        # with FAST5 output the filename column points into fast5/
+        if config['fast5_output']:
+            if config['barcoding']:
+                self.format_filename = (lambda entry: os.path.join(
+                    'fast5', entry['label'],
+                    self.barcode_mapping[entry.get('barcode')],
+                    entry['filename']))
+            else:
+                self.format_filename = (lambda entry: os.path.join(
+                    'fast5', entry['label'], entry['filename']))
+        else:
+            self.format_filename = lambda entry: entry['filename']
+
         print(*self.output_fields, sep='\t', file=self.file)
 
     def close(self):
@@ -80,6 +168,7 @@ class SequencingSummaryWriter:
                     continue
                 output_entry = entry.copy()
                 output_entry['label'] = self.label_mapping[entry['label']]
+                output_entry['filename'] = self.format_filename(output_entry)
                 if self.barcode_mapping is not None:
                     output_entry['barcode'] = \
                         self.barcode_mapping[entry.get('barcode')]
@@ -91,6 +180,57 @@ class SequencingSummaryWriter:
                         if 'polya' in entry else '')
                 print(*[output_entry[f] for f in self.output_fields],
                       file=self.file, sep='\t')
+
+
+class NanopolishReadDBWriter:
+    """Per output name a FASTA of the sequences and a readdb of read id to
+    FAST5 copy; on close each non-empty FASTA is also written BGZF
+    compressed as ``.fasta.index``, indexed with pysam's faidx where pysam
+    is installed."""
+
+    def __init__(self, output_dir, output_layout):
+        self.output_layout = output_layout
+        self.output_dir = os.path.join(output_dir, 'nanopolish')
+        self.lock = Lock()
+        self.seqfiles, self.dbfiles = {}, {}
+        for groupid, name in output_layout.items():
+            filepath = os.path.join(self.output_dir, name + '.fasta')
+            ensure_dir_exists(filepath)
+            self.seqfiles[groupid] = open(filepath, 'w')
+            self.dbfiles[groupid] = open(filepath + '.index.readdb', 'w')
+
+    def close(self):
+        for f in list(self.seqfiles.values()) + list(self.dbfiles.values()):
+            f.close()
+        self.seqfiles.clear()
+        self.dbfiles.clear()
+
+        for groupid, name in self.output_layout.items():
+            inputfile = os.path.join(self.output_dir, name + '.fasta')
+            if os.path.getsize(inputfile) > 0:
+                bgzipped = inputfile + '.index'
+                with open(inputfile, 'rb') as src, \
+                        BGZFWriter(bgzipped) as dst:
+                    dst.write(src.read())
+                try:
+                    from pysam import faidx
+                    faidx(bgzipped)
+                except ImportError:
+                    pass
+
+    def write_sequences(self, procresult):
+        with self.lock:
+            for entry in procresult:
+                if entry.get('sequence') is not None:
+                    mappingkey = entry['label'], entry.get('barcode')
+                    self.seqfiles[mappingkey].write(
+                        '>{}\n{}\n'.format(entry['read_id'],
+                                           entry['sequence'][0]))
+                    fast5_relpath = os.path.join(
+                        'fast5', self.output_layout[mappingkey],
+                        entry['filename'])
+                    self.dbfiles[mappingkey].write(
+                        '{}\t{}\n'.format(entry['read_id'], fast5_relpath))
 
 
 class FinalSummaryTracker:
@@ -186,3 +326,137 @@ class FinalSummaryTracker:
                  ''.join(cell.format(cells.get(bc, 0))
                          for bc in self.barcode_reporting_order))
         emit('')
+
+
+class DumpWriter:
+    """Adapter-signal and basecalled-event dumps of a session, written per
+    batch into one part file each and linked into inventories at the
+    end."""
+
+    EVENT_DUMP_FIELDS = ['mean', 'start', 'stdv', 'length', 'model_state',
+                         'move', 'pos', 'end', 'scaled_mean']
+    EVENT_DUMP_DTYPES = ['<f4', '<u8', '<f4', '<u8', None,
+                         '<i4', '<u8', '<u8', '<f8']
+
+    def __init__(self, config, session_tag='0'):
+        import h5py
+        self.config = config
+        self.outputdir = config['outputdir']
+        self.lock = Lock()
+        self.adapter_file = self.adapter_catalog = None
+        self.events_file = None
+        self.kmersize = 5
+
+        if config['dump_adapter_signals']:
+            path = os.path.join(self.outputdir, 'adapter-dumps',
+                                'part-' + session_tag + '.h5')
+            ensure_dir_exists(path)
+            self.adapter_file = h5py.File(path, 'a')
+            self.adapter_catalog = []
+        if config['dump_basecalls']:
+            path = os.path.join(self.outputdir, 'events',
+                                'part-' + session_tag + '.h5')
+            ensure_dir_exists(path)
+            self.events_file = h5py.File(path, 'a')
+
+    def write_aux(self, batchid, aux):
+        with self.lock:
+            fmt_batch = format(batchid, '08d')
+            if self.adapter_file is not None:
+                grp = self.adapter_file.require_group(
+                    'adapter/' + fmt_batch)
+                for read_id, signal, start, end in aux['adapter_dumps']:
+                    if read_id in grp:
+                        continue
+                    grp.create_dataset(read_id, shape=(len(signal),),
+                                       dtype=np.float32, data=signal)
+                    self.adapter_catalog.append((read_id, start, end,
+                                                 fmt_batch))
+            if self.events_file is not None:
+                grp = self.events_file.require_group(
+                    'basecalled_events/' + fmt_batch)
+                for read_id, events, attrs in aux['event_dumps']:
+                    if read_id in grp:
+                        continue
+                    fields = list(zip(
+                        self.EVENT_DUMP_FIELDS,
+                        [d if d else 'S{}'.format(self.kmersize)
+                         for d in self.EVENT_DUMP_DTYPES]))
+                    dataset = np.empty(len(events), dtype=fields)
+                    for name, _ in fields:
+                        dataset[name] = events[name]
+                    grp[read_id] = dataset
+                    objattrs = grp[read_id].attrs
+                    for attrname, attrvalue in attrs:
+                        objattrs[attrname] = attrvalue
+
+    def close(self):
+        with self.lock:
+            if self.adapter_file is not None:
+                by_batch = defaultdict(list)
+                for read_id, start, end, fmt_batch in self.adapter_catalog:
+                    by_batch[fmt_batch].append((read_id, start, end))
+                catgrp = self.adapter_file.require_group('catalog/adapter')
+                for fmt_batch, entries in by_batch.items():
+                    encoded = np.array(entries, dtype=[
+                        ('read_id', 'S36'), ('start', 'i8'), ('end', 'i8')])
+                    catgrp.create_dataset(fmt_batch, shape=encoded.shape,
+                                          data=encoded)
+                self.adapter_file.close()
+                self.adapter_file = None
+            if self.events_file is not None:
+                self.events_file.close()
+                self.events_file = None
+
+
+# ---------------------------------------------------------------- merges
+
+def get_read_id_dump_group(read_id, grplength=3):
+    return read_id[:grplength]
+
+
+def create_links_rebalanced(desth5, group, infiles):
+    """Link every read of ``group`` in the part files into desth5, under
+    subgroups named by the read id's first characters."""
+    import h5py
+    desth5.require_group(group)
+    for datafile in infiles:
+        basename = os.path.basename(datafile)
+        with h5py.File(datafile, 'r') as d5:
+            if group not in d5:
+                continue
+            for batchid, subgrp in d5[group].items():
+                for readid in subgrp.keys():
+                    dumpgroup = get_read_id_dump_group(readid)
+                    gobj = desth5.require_group(group + '/' + dumpgroup)
+                    if readid in gobj:
+                        continue
+                    gobj[readid] = h5py.ExternalLink(
+                        basename, '{}/{}/{}'.format(group, batchid, readid))
+
+
+def create_adapter_dumps_inventory(destfile, filepattern):
+    """The adapter dumps' inventory: the part files' catalogs merged and
+    sorted by read id, and a link to every dump."""
+    import h5py
+    with h5py.File(destfile, 'w') as ivt:
+        ivt.require_group('catalog')
+        fragments = []
+        for datafile in glob(filepattern):
+            with h5py.File(datafile, 'r') as d5:
+                if 'catalog/adapter' not in d5:
+                    continue
+                for batchid, tbl in d5['catalog/adapter'].items():
+                    fragments.append(tbl[:])
+        if fragments:
+            fulltbl = np.hstack(fragments)
+            fulltbl.sort(order='read_id')
+            ivt['catalog/adapter'] = fulltbl
+        create_links_rebalanced(ivt, 'adapter', glob(filepattern))
+
+
+def create_events_inventory(destfile, filepattern):
+    """The basecalled events' inventory: a link to every read's table."""
+    import h5py
+    with h5py.File(destfile, 'w') as ivt:
+        create_links_rebalanced(ivt, 'basecalled_events', glob(filepattern))

@@ -1,12 +1,13 @@
 """Per-batch analysis driver with upstream poreplex's per-read control flow
 and status lattice, run as batch phases:
 
-  A  host FAST5 load (metadata, raw signal pooled to pA frames, basecall)
+  A  host read load from the session's source (metadata, raw signal
+     pooled to pA frames, basecall)
   B  device stage 1: scaler + QC + scaling + Viterbi extents + demux net
   C  host: segments, gates, basecall events and adapter trimming; the
      poly(A) rounds and the unsplit-read windows on the device
   D  demux resolution from the stage-1 probabilities
-  E  report dicts
+  E  report dicts, and the adapter-signal and basecalled-event dumps
 
 A read can stop at any phase with a status from the taxonomy; later
 phases skip stopped reads. A kernel that fails to build or launch stops
@@ -15,21 +16,20 @@ unfiltered read.
 """
 
 import csv
-import os
 import sys
 import traceback
 
 import numpy as np
 
-from .. import fast5
 from ..utils import pack_unhandled_exception, trace
 from .engine import DeviceEngine
 from .polya import PolyaAnalyzer
 from .read import ReadRecord
+from .source import DirectorySource
 from .unsplit import UnsplitReadDetector
 
 # basecall event columns stage C reads (an albacore Events read fetches
-# only these members)
+# only these members); the event dumps take every column
 EVENT_COLUMNS = ('mean', 'start', 'move', 'p_model_state')
 
 
@@ -56,11 +56,15 @@ def read_kmer_size(path):
 
 
 class BatchAnalyzer:
-    """Models, engine and per-batch phases; reused across batches."""
+    """Models, engine and per-batch phases; reused across batches. Reads
+    come from ``source`` (pipeline/source.py), the input directory's FAST5
+    files unless another is given."""
 
-    def __init__(self, config):
+    def __init__(self, config, source=None):
         self.config = config
         self.inputdir = config['inputdir']
+        self.source = source if source is not None else \
+            DirectorySource(self.inputdir)
         self.stride = config['signal_processing']['rough_signal_stride']
         self.engine = DeviceEngine(config)
         if self.engine.scaler.input_stride != self.stride:
@@ -76,6 +80,8 @@ class BatchAnalyzer:
         self.unsplit_detector = (
             UnsplitReadDetector(config, self.engine.unsplitmodel)
             if config['filter_unsplit_reads'] else None)
+        self._event_columns = (None if config['dump_basecalls']
+                               else EVENT_COLUMNS)
         if config['barcoding']:
             self.demux_threshold = self.engine.demux.score_threshold(
                 config['barcoding_quality_filter'])
@@ -90,12 +96,11 @@ class BatchAnalyzer:
         readers = []
         # the reads of one multi-read file share one open handle until
         # the batch is loaded
-        pool = fast5.Fast5FilePool()
+        open_read = self.source.opener()
         with trace('A:fast5_load'):
             try:
                 for f5file, read_id in reads:
-                    if not os.path.exists(os.path.join(self.inputdir,
-                                                       f5file)):
+                    if not self.source.exists(f5file):
                         results.append({'filename': f5file,
                                         'read_id': read_id,
                                         'status': 'disappeared'})
@@ -103,8 +108,7 @@ class BatchAnalyzer:
                     rec = ReadRecord(f5file, self.inputdir, read_id)
                     try:
                         with trace('A:open'):
-                            reader = fast5.Fast5Reader(rec.fullpath, read_id,
-                                                       pool=pool)
+                            reader = open_read(f5file, read_id)
                     except Exception:
                         traceback.print_exc()
                         rec.set_status('irregular_fast5', stop=True)
@@ -170,19 +174,21 @@ class BatchAnalyzer:
         # statuses keep their precedence
         try:
             with trace('A:bcall'):
-                rec.bcall = reader.get_basecall(columns=EVENT_COLUMNS)
+                rec.bcall = reader.get_basecall(columns=self._event_columns)
         except Exception as exc:
             rec.bcall_error = exc
 
     # ------------------------------------------------------------------
     def process_batch(self, reads, preloaded=None):
         """reads: list of (fast5_filename, read_id), or None with
-        ``preloaded`` from load_batch. Returns the report dicts."""
+        ``preloaded`` from load_batch. Returns (the report dicts, the dump
+        payloads for the session's DumpWriter)."""
         if preloaded is None:
             preloaded = self.load_batch(reads)
         results, records = preloaded
+        aux = {'adapter_dumps': [], 'event_dumps': []}
         if not records:
-            return results
+            return results, aux
 
         # ---- PHASE B: device stage 1 ----
         with trace('B:device_stage1'):
@@ -209,6 +215,8 @@ class BatchAnalyzer:
             if 'adapter' not in segments:
                 failed[rec] = 'adapter_not_detected'
                 continue
+            if self.config['dump_adapter_signals']:
+                self._dump_adapter_signal(rec, stage1['scaling'][i], aux)
             if self.config['barcoding'] and stage1['demux_ok'][i]:
                 demux_slots[rec] = stage1['demux_probs'][i]
             if self.polya_analyzer is not None:
@@ -222,10 +230,13 @@ class BatchAnalyzer:
                 self.polya_analyzer.process_batch(polya_items, self.stride)
 
         unsplit_jobs = []       # (rec, payload_start, windows)
+        dump_jobs = []          # (rec, events)
         with trace('C:events_trim'):
             for rec in survivors:
                 try:
                     events = self._load_events(rec)
+                    if self.config['dump_basecalls']:
+                        dump_jobs.append((rec, events))
                     if self.config['trim_adapter']:
                         self._trim_adapter(rec, events)
                     if self.unsplit_detector is not None:
@@ -244,6 +255,8 @@ class BatchAnalyzer:
 
         if unsplit_jobs:
             self._filter_unsplit(unsplit_jobs, failed)
+        for rec, events in dump_jobs:
+            self._dump_events(rec, events, aux)
 
         # sequence length filter + labels
         for rec in survivors:
@@ -276,7 +289,7 @@ class BatchAnalyzer:
         for rec in records:
             results.append(rec.report())
             rec.clear_cache()
-        return results
+        return results, aux
 
     def run_stage1(self, records):
         """Stage 1 of every record: all sub-batches are enqueued on the
@@ -341,6 +354,42 @@ class BatchAnalyzer:
         events['end'] = events['start'] + duration
         rec.events = events
         return events
+
+    def _scaled_pooled_signal(self, rec, scaling):
+        scale, shift = scaling
+        return rec.pooled * float(scale) + float(shift)
+
+    def _dump_adapter_signal(self, rec, scaling, aux):
+        """The adapter's scaled pooled frames and its raw sample span."""
+        a0, a1 = rec.segments['adapter']
+        signal = self._scaled_pooled_signal(rec, scaling)[a0:a1 + 1]
+        if len(signal) > 0:
+            aux['adapter_dumps'].append(
+                (rec.read_id, np.asarray(signal, np.float32),
+                 a0 * self.stride, (a1 + 1) * self.stride))
+
+    def _dump_events(self, rec, events, aux):
+        """The basecalled events with the read's scaling, adapter and
+        poly(A) positions as attributes."""
+        attrs = []
+        if rec.scaling_params is not None:
+            attrs.append(('signal_scale', rec.scaling_params[0]))
+            attrs.append(('signal_shift', rec.scaling_params[1]))
+        if 'adapter' in rec.segments:
+            attrs.append(('adapter_begin',
+                          np.uint32(rec.segments['adapter'][0] * self.stride)))
+            attrs.append(('adapter_end',
+                          np.uint32((rec.segments['adapter'][1] + 1) *
+                                    self.stride)))
+        if rec.polya is not None:
+            if 'polya-tail' in rec.segments:
+                attrs.append(('polya_end_debug',
+                              np.uint32((rec.segments['polya-tail'][1] + 1) *
+                                        self.stride)))
+            attrs.append(('polya_begin', np.uint32(rec.polya['begin'])))
+            attrs.append(('polya_end', np.uint32(rec.polya['end'])))
+            attrs.append(('spikes', repr(rec.polya['spikes']).encode()))
+        aux['event_dumps'].append((rec.read_id, events.copy(), attrs))
 
     def _trim_adapter(self, rec, events):
         """Upstream poreplex returns early whenever a sequence exists,

@@ -1,153 +1,536 @@
-"""Offline processing session: scan an input directory tree for FAST5
-files, run the reads through the BatchAnalyzer in batches of
-``batch_chunk_size``, and write the FASTQ streams, the sequencing summary
-and the final count matrix.
+"""Processing session: an asyncio loop that scans the read source (and, in
+live mode, watches it for new files), gathers its entries into batches of
+``batch_chunk_size``, runs each batch through the BatchAnalyzer and writes
+the results to every enabled sink.
 
-Batches run one after another in this process; the device works on one
-batch at a time. Live mode, the dashboard, resume and multi-host runs
-belong to later slices of the port (``config.LATER_SLICES``).
+Batches run on one compute thread, so the device works on one batch at a
+time and batches finish in scan order; a batch's writes run on one writer
+thread while the next batch computes, so the written order is the scan
+order too. Every read that finishes ``okay`` is appended to
+``OUTDIR/.processed-reads``; with ``resume`` the reads listed there are
+skipped, and in live mode a read found again is not queued twice. The
+reads come from the input directory's FAST5 files unless the caller hands
+``run`` another source (pipeline/source.py).
 """
 
+import asyncio
 import os
+import sys
+import traceback
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
+from io import StringIO
+from itertools import cycle
 
-from ..fast5 import get_read_ids
-from ..io.writers import (FASTQWriter, SequencingSummaryWriter,
-                          FinalSummaryTracker)
+from ..io.writers import (
+    FASTQWriter, FAST5Writer, SequencingSummaryWriter,
+    NanopolishReadDBWriter, FinalSummaryTracker, DumpWriter,
+    create_adapter_dumps_inventory, create_events_inventory)
 from ..utils import errprint, GLOBAL_TIMER
 from .analyzer import BatchAnalyzer
+from .source import DirectorySource
 
-FAST5_SUFFIX = '.fast5'
-
-
-def scan_dir(topdir, dirname='', suffix=FAST5_SUFFIX):
-    """Paths, relative to topdir, of every FAST5 file under it: a
-    directory's files (in listing order) before its subdirectories."""
-    files, dirs = [], []
-    for entryname in os.listdir(os.path.join(topdir, dirname)):
-        if entryname.startswith('.'):
-            continue
-        relpath = os.path.join(dirname, entryname)
-        if os.path.isdir(os.path.join(topdir, relpath)):
-            dirs.append(relpath)
-        elif entryname.lower().endswith(suffix):
-            files.append(relpath)
-    yield from files
-    for relpath in dirs:
-        yield from scan_dir(topdir, relpath, suffix)
+# sinks that copy input FAST5 files or write HDF5 dumps
+FILE_SINKS = ('fast5_output', 'nanopolish_output', 'dump_adapter_signals',
+              'dump_basecalls')
 
 
 class ProcessingSession:
 
-    def __init__(self, config, logger):
+    # live mode: seconds between two polls of the input when inotify is
+    # missing, and the shortest heartbeat of the stalled-queue watchdog
+    POLL_INTERVAL = 2.0
+    MIN_HEARTBEAT = 10
+
+    def __init__(self, config, logger, source=None):
+        self.running = True
+        self.scan_finished = False
+        self.reads_queued = self.reads_found = 0
+        self.reads_processed = 0
+        self.next_batch_id = 0
+        self.reads_done = set()
+        self.active_batches = 0
+        self.error_status_counts = defaultdict(int)
+        self.jobstack = []
+        self.tasks = set()
+
         self.config = config
         self.logger = logger
-        self.reads_found = 0
-        self.reads_processed = 0
-        self.reads_done = set()
-        self.status_counts = defaultdict(int)
+        self.source = source if source is not None else \
+            DirectorySource(config['inputdir'])
+        refused = [key for key in FILE_SINKS if config[key]]
+        if refused and not self.source.holds_files:
+            raise ValueError(
+                '{} need FAST5 input files and h5py; a {} has neither'.format(
+                    ', '.join(refused), type(self.source).__name__))
         self.analyzer = None
-        self.fastq_writer = None
-        self.seqsummary_writer = None
+
+        self.executor_compute = ThreadPoolExecutor(1)
+        self.executor_io = ThreadPoolExecutor(1)
+        self.executor_mon = ThreadPoolExecutor(2)
+
+        self.loop = None
+        self.fastq_writer = self.fast5_writer = None
+        self.npreaddb_writer = self.seqsummary_writer = None
+        self.dump_writer = None
         self.finalsummary_tracker = None
 
+        self.manifest_path = os.path.join(config['outputdir'],
+                                          '.processed-reads')
+        self.manifest_file = None
+        if config['resume']:
+            self._load_manifest()
+
+    # ------------------------------------------------------------------
     def __enter__(self):
+        self.loop = asyncio.new_event_loop()
+        asyncio.set_event_loop(self.loop)
+
+        import signal as signal_mod
+        for signame in ('SIGINT', 'SIGTERM'):
+            try:
+                self.loop.add_signal_handler(
+                    getattr(signal_mod, signame), self.stop, signame)
+            except (NotImplementedError, RuntimeError):
+                pass
+
         config = self.config
         if config['fastq_output']:
             self.fastq_writer = FASTQWriter(config['outputdir'],
                                             config['output_layout'])
+        if config['fast5_output']:
+            self.fast5_writer = FAST5Writer(
+                config['outputdir'], config['output_layout'],
+                config['inputdir'], config['fast5_batch_size'])
+        if config['nanopolish_output']:
+            self.npreaddb_writer = NanopolishReadDBWriter(
+                config['outputdir'], config['output_layout'])
         self.seqsummary_writer = SequencingSummaryWriter(
             config, config['outputdir'], config['label_names'],
             config['barcode_names'])
         self.finalsummary_tracker = FinalSummaryTracker(
             config['label_names'], config['barcode_names'])
+        if config['dump_adapter_signals'] or config['dump_basecalls']:
+            self.dump_writer = DumpWriter(config)
         return self
 
     def __exit__(self, *args):
-        for writer in (self.fastq_writer, self.seqsummary_writer):
+        # a batch cancelled while its thread still runs finishes first
+        self.executor_mon.shutdown()
+        self.executor_compute.shutdown()
+        self.executor_io.shutdown()
+        for writer in (self.fastq_writer, self.fast5_writer,
+                       self.npreaddb_writer, self.seqsummary_writer,
+                       self.dump_writer):
             if writer is not None:
                 writer.close()
-        self.fastq_writer = self.seqsummary_writer = None
+        self.fastq_writer = self.fast5_writer = None
+        self.npreaddb_writer = self.seqsummary_writer = None
+        self.dump_writer = None
+        if self.manifest_file is not None:
+            self.manifest_file.close()
+            self.manifest_file = None
+        self.loop.close()
+
+    # ------------------------------------------------------------------
+    def _load_manifest(self):
+        if not os.path.exists(self.manifest_path):
+            return
+        with open(self.manifest_path) as f:
+            for line in f:
+                parts = line.rstrip('\n').split('\t')
+                if len(parts) == 2:
+                    self.reads_done.add((parts[0], parts[1]))
+        if self.reads_done:
+            self.show_message('==> Resuming: {} reads already processed'
+                              .format(len(self.reads_done)))
+
+    def _record_processed(self, readpaths):
+        if self.manifest_file is None:
+            self.manifest_file = open(self.manifest_path, 'a')
+        for filename, read_id in readpaths:
+            self.manifest_file.write('{}\t{}\n'.format(filename, read_id))
+        self.manifest_file.flush()
+
+    # ------------------------------------------------------------------
+    def errx(self, message):
+        if self.running:
+            errprint(message)
+            self.stop('ERROR')
 
     def show_message(self, message):
         if not self.config['quiet']:
             print(message)
 
-    def entries(self):
-        """Read entries in scan order; a file that cannot be listed is
-        logged and skipped."""
-        topdir = self.config['inputdir']
-        for relpath in scan_dir(topdir):
+    def stop(self, signalname='unknown'):
+        if self.running:
+            if signalname in ('SIGTERM', 'SIGINT'):
+                errprint('\nTermination in process. Please wait for a moment.')
+            self.running = False
+        for task in asyncio.all_tasks(self.loop):
+            task.cancel()
+
+    def run_in_executor_mon(self, *args):
+        return self.loop.run_in_executor(self.executor_mon, *args)
+
+    def spawn(self, coro):
+        """A task on the session's loop, held until it is done (the loop
+        holds its tasks weakly)."""
+        task = self.loop.create_task(coro)
+        self.tasks.add(task)
+        task.add_done_callback(self.tasks.discard)
+        return task
+
+    # ------------------------------------------------------------------
+    def analyze_batch(self, files):
+        """On the compute thread: the analyzer (built at the first batch,
+        timed as ``S:build_analyzer``) over one batch; returns (results,
+        aux)."""
+        if self.analyzer is None:
+            with GLOBAL_TIMER.stage('S:build_analyzer'):
+                self.analyzer = BatchAnalyzer(self.config, self.source)
+        return self.analyzer.process_batch(files)
+
+    def write_results(self, batchid, results, aux):
+        """On the writer thread: every enabled sink, each timed as
+        ``D:io_<sink method>``."""
+        calls = []
+        if self.fastq_writer is not None:
+            calls.append((self.fastq_writer.write_sequences, results))
+        if self.fast5_writer is not None:
+            calls.append((self.fast5_writer.transfer_reads, results))
+        if self.npreaddb_writer is not None:
+            calls.append((self.npreaddb_writer.write_sequences, results))
+        if self.dump_writer is not None:
+            calls.append((self.dump_writer.write_aux, batchid, aux))
+        calls.append((self.seqsummary_writer.write_results, results))
+        for fn, *args in calls:
+            with GLOBAL_TIMER.stage('D:io_' + fn.__qualname__):
+                fn(*args)
+
+    async def run_process_batch(self, batchid, files):
+        if self.config['analysis_start_delay'] > 0:
             try:
-                yield from get_read_ids(relpath, topdir)
+                await asyncio.sleep(self.config['analysis_start_delay'])
+            except asyncio.CancelledError:
+                return
+
+        self.active_batches += 1
+        try:
+            results, aux = await self.loop.run_in_executor(
+                self.executor_compute, self.analyze_batch, files)
+
+            # a read already done (a live-mode re-feed) is dropped here
+            nd_results = []
+            newly_done = []
+            for result in results:
+                readpath = result['filename'], result['read_id']
+                if readpath not in self.reads_done:
+                    if result['status'] == 'okay':
+                        self.reads_done.add(readpath)
+                        newly_done.append(readpath)
+                    elif 'error_message' in result:
+                        self.logger.error(result['error_message'])
+                    nd_results.append(result)
+                else:
+                    self.reads_queued -= 1
+                    self.reads_found -= 1
+                self.error_status_counts[result['status']] += 1
+            if newly_done:
+                self._record_processed(newly_done)
+
+            if nd_results:
+                await self.loop.run_in_executor(
+                    self.executor_io, self.write_results, batchid,
+                    nd_results, aux)
+                self.finalsummary_tracker.feed_results(nd_results)
+
+            # a stream of reads without basecalls: stop early
+            if (self.error_status_counts['okay'] == 0 and self.running and
+                    self.error_status_counts['not_basecalled'] >=
+                    self.config['nobasecall_stop_trigger']):
+                stopmsg = (
+                    'Early stopping: {} out of {} reads are not basecalled. '
+                    'Please check if the files are correctly analyzed, or '
+                    'add `--basecall\' to the command line.'.format(
+                        self.error_status_counts['not_basecalled'],
+                        sum(self.error_status_counts.values())))
+                self.logger.error(stopmsg)
+                self.errx(stopmsg)
+
+        except asyncio.CancelledError:
+            return
+        except Exception as exc:
+            self.logger.error('Unhandled error during processing reads',
+                              exc_info=exc)
+            return self.errx('ERROR: Unhandled error ' + str(exc))
+        finally:
+            self.active_batches -= 1
+
+        self.reads_processed += len(nd_results)
+        self.reads_queued -= len(nd_results)
+
+    # ------------------------------------------------------------------
+    def queue_processing(self, readpath):
+        """Admit one (filename, read_id) entry into the pending batch; a
+        full pending batch is submitted at once."""
+        self.reads_found += 1
+        self.reads_queued += 1
+        self.jobstack.append(readpath)
+        if len(self.jobstack) >= self.config['batch_chunk_size']:
+            self.flush_jobstack()
+
+    def flush_jobstack(self):
+        """Submit whatever is pending as one batch task. Entries done since
+        they were queued (live-mode re-feeds) are dropped here, with the
+        found and queued counts rolled back."""
+        if not (self.running and self.jobstack):
+            return
+        pending, self.jobstack = self.jobstack, []
+        fresh = [entry for entry in pending if entry not in self.reads_done]
+        already_done = len(pending) - len(fresh)
+        if already_done:
+            self.reads_queued -= already_done
+            self.reads_found -= already_done
+        if fresh:
+            batch_id = self.next_batch_id
+            self.next_batch_id += 1
+            self.spawn(self.run_process_batch(batch_id, fresh))
+
+    async def scan_inputs(self):
+        """Queue every entry of the source in scan order: a directory's
+        files before its subdirectories. A file that cannot be listed is
+        logged and skipped."""
+        try:
+            files = await self.run_in_executor_mon(self.source.list_files)
+        except asyncio.CancelledError:
+            return
+        except Exception as exc:
+            return self.errx('ERROR: ' + str(exc))
+
+        for relpath in files:
+            try:
+                entries = await self.run_in_executor_mon(
+                    self.source.read_ids, relpath)
+            except asyncio.CancelledError:
+                return
             except Exception as exc:
                 self.logger.error('Could not list reads in %s: %s',
                                   relpath, exc)
-
-    def process_batch(self, batch):
-        """Run one batch and write its results; returns False when the
-        session must stop."""
-        results = self.analyzer.process_batch(batch)
-        fresh = []
-        for result in results:
-            readpath = result['filename'], result['read_id']
-            if readpath in self.reads_done:
-                self.reads_found -= 1
                 continue
-            if result['status'] == 'okay':
-                self.reads_done.add(readpath)
-            elif 'error_message' in result:
-                self.logger.error(result['error_message'])
-            self.status_counts[result['status']] += 1
-            fresh.append(result)
-        if fresh:
-            if self.fastq_writer is not None:
-                with GLOBAL_TIMER.stage('D:io_fastq'):
-                    self.fastq_writer.write_sequences(fresh)
-            with GLOBAL_TIMER.stage('D:io_summary'):
-                self.seqsummary_writer.write_results(fresh)
-            self.finalsummary_tracker.feed_results(fresh)
-        self.reads_processed += len(fresh)
+            for readpath in entries:
+                self.queue_processing(readpath)
 
-        # a stream of reads without basecalls: stop early
-        if (self.status_counts['okay'] == 0 and
-                self.status_counts['not_basecalled'] >=
-                self.config['nobasecall_stop_trigger']):
-            stopmsg = (
-                'Early stopping: {} out of {} reads are not basecalled. '
-                'Please check if the files are correctly analyzed.'.format(
-                    self.status_counts['not_basecalled'],
-                    sum(self.status_counts.values())))
-            self.logger.error(stopmsg)
-            errprint('ERROR: ' + stopmsg)
-            return False
-        return True
+        self.flush_jobstack()
+        self.scan_finished = True
 
+    # ------------------------------------------------------------------
+    def _queue_file(self, relpath):
+        for readpath in self.source.read_ids(relpath):
+            if readpath not in self.reads_done:
+                self.queue_processing(readpath)
+
+    async def live_watch_inputs(self):
+        """Queue the reads of files that appear in the source: through
+        inotify where it can be imported and the source is a directory,
+        else by polling the files' modification times."""
+        have_inotify = False
+        if isinstance(self.source, DirectorySource):
+            try:
+                from inotify.adapters import InotifyTree
+                from inotify.constants import IN_CLOSE_WRITE, IN_MOVED_TO
+                have_inotify = True
+            except ImportError:
+                pass
+
+        try:
+            if have_inotify:
+                topdir = os.path.abspath(self.source.topdir) + '/'
+                watch_flags = IN_CLOSE_WRITE | IN_MOVED_TO
+                evgen = InotifyTree(topdir, mask=watch_flags).event_gen()
+                while True:
+                    event = await self.run_in_executor_mon(next, evgen)
+                    if event is None:
+                        continue
+                    header, type_names, path, filename = event
+                    if 'IN_ISDIR' in type_names:
+                        continue
+                    if (header.mask & watch_flags and filename[:1] != '.' and
+                            filename.lower().endswith('.fast5')):
+                        common = os.path.commonprefix([topdir, path])
+                        if common != topdir:
+                            errprint('ERROR: Change of {} detected, which is '
+                                     'outside {}.'.format(path, topdir))
+                            continue
+                        self._queue_file(
+                            os.path.join(path[len(common):], filename))
+            else:
+                seen = {}
+                while self.running:
+                    await asyncio.sleep(self.POLL_INTERVAL)
+                    snapshot = await self.run_in_executor_mon(
+                        self.source.snapshot)
+                    for relpath, mtime in snapshot.items():
+                        if seen.get(relpath) == mtime:
+                            continue
+                        seen[relpath] = mtime
+                        try:
+                            self._queue_file(relpath)
+                        except Exception:
+                            pass
+        except asyncio.CancelledError:
+            pass
+
+    # ------------------------------------------------------------------
+    async def wait_until_finish(self):
+        while self.running:
+            try:
+                await asyncio.sleep(0.2)
+            except asyncio.CancelledError:
+                break
+            if self.scan_finished and self.reads_queued <= 0 and \
+                    self.active_batches <= 0:
+                break
+
+    async def wait_for_stop(self):
+        while self.running:
+            try:
+                await asyncio.sleep(0.5)
+            except asyncio.CancelledError:
+                break
+
+    async def force_flushing_stalled_queue(self):
+        """Live-mode watchdog: when no new read has been found for two
+        heartbeats in a row while entries wait below the batch size,
+        submit them anyway, so a paused sequencer does not strand a
+        partial batch."""
+        heartbeat = max(self.MIN_HEARTBEAT,
+                        int(self.config['analysis_start_delay']) // 2)
+        last_found = -1
+        quiet_beats = 0
+        while self.running:
+            try:
+                await asyncio.sleep(heartbeat)
+            except asyncio.CancelledError:
+                break
+            if self.reads_found != last_found:
+                last_found = self.reads_found
+                quiet_beats = 0
+            elif self.reads_queued > 0:
+                quiet_beats += 1
+                if quiet_beats >= 2:
+                    quiet_beats = 0
+                    self.flush_jobstack()
+
+    async def _show_progress(self, format_line):
+        spinner = cycle(r'/-\|')
+        prev_width = 0
+        while self.running:
+            msg = format_line(next(spinner))
+            if len(msg) < prev_width:
+                msg += ' ' * (prev_width - len(msg))
+            prev_width = len(msg)
+            sys.stdout.write(msg)
+            sys.stdout.flush()
+            try:
+                await asyncio.sleep(0.3)
+            except asyncio.CancelledError:
+                break
+
+    async def show_progresses_offline(self):
+        await self._show_progress(
+            lambda spin: '\r[{}] {} processed / {} found{}'.format(
+                spin, self.reads_processed, self.reads_found,
+                '' if self.scan_finished else ' (scanning)'))
+
+    async def show_progresses_live(self):
+        self.show_message('==> Entering LIVE mode.')
+        self.show_message('\nPress Ctrl-C when the sequencing run is '
+                          'finished.')
+        self.show_message('(!) An analysis starts at least {} seconds after '
+                          'the file is discovered.'.format(
+                              self.config['analysis_start_delay']))
+        await self._show_progress(
+            lambda spin: '\rLIVE [{}] {} processed, {} queued ({} total '
+                         'reads)'.format(spin, self.reads_processed,
+                                         self.reads_queued, self.reads_found))
+
+    def finalize_results(self):
+        # the dump part files are closed before the inventories link into
+        # them
+        if self.dump_writer is not None:
+            self.dump_writer.close()
+        if self.config['dump_adapter_signals']:
+            self.show_message(
+                '==> Creating an inventory for adapter signal dumps')
+            prefix = os.path.join(self.config['outputdir'], 'adapter-dumps')
+            create_adapter_dumps_inventory(
+                os.path.join(prefix, 'inventory.h5'),
+                os.path.join(prefix, 'part-*.h5'))
+        if self.config['dump_basecalls']:
+            self.show_message(
+                '==> Creating an inventory for basecalled events')
+            prefix = os.path.join(self.config['outputdir'], 'events')
+            create_events_inventory(
+                os.path.join(prefix, 'inventory.h5'),
+                os.path.join(prefix, 'part-*.h5'))
+
+    # ------------------------------------------------------------------
     @classmethod
-    def run(cls, config, logger):
-        """Process the input directory. Returns the final summary's
-        ``print_results`` when every read found was processed, else
-        None."""
-        with cls(config, logger) as sess:
+    def run(cls, config, logger, source=None):
+        """Process every read of ``source`` (the input directory's FAST5
+        files by default). Returns the final summary's ``print_results``
+        when every read found was processed, else None."""
+        with cls(config, logger, source) as sess:
             sess.show_message('==> Processing FAST5 files')
-            sess.analyzer = BatchAnalyzer(config)
-            chunk = config['batch_chunk_size']
-            batch = []
-            completed = True
-            for entry in sess.entries():
-                sess.reads_found += 1
-                batch.append(entry)
-                if len(batch) >= chunk:
-                    completed = sess.process_batch(batch)
-                    batch = []
-                    if not completed:
-                        break
-            if batch and completed:
-                completed = sess.process_batch(batch)
+            loop = sess.loop
+
+            if config['live']:
+                sess.spawn(sess.force_flushing_stalled_queue())
+                finish_task = sess.spawn(sess.wait_for_stop())
+            else:
+                finish_task = sess.spawn(sess.wait_until_finish())
+
+            if config['quiet']:
+                pass
+            elif config['live']:
+                sess.spawn(sess.show_progresses_live())
+            else:
+                sess.spawn(sess.show_progresses_offline())
+
+            sess.spawn(sess.scan_inputs())
+            if config['live']:
+                sess.spawn(sess.live_watch_inputs())
+
+            try:
+                loop.run_until_complete(finish_task)
+            except asyncio.CancelledError:
+                errprint('\nInterrupted')
+            except Exception as exc:
+                errf = StringIO()
+                traceback.print_exc(file=errf)
+                errprint('\nERROR: ' + str(exc))
+                for line in errf.getvalue().splitlines():
+                    logger.error(line)
+
+            for task in [t for t in asyncio.all_tasks(loop) if not t.done()]:
+                task.cancel()
+                try:
+                    loop.run_until_complete(task)
+                except asyncio.CancelledError:
+                    pass
+                except Exception as exc:
+                    errprint('\nERROR: ' + str(exc))
+
+            if not config['quiet'] and sess.scan_finished:
+                sess.show_message('')
             GLOBAL_TIMER.report(logger)
 
-            if completed and sess.reads_found == sess.reads_processed:
+            if sess.scan_finished and \
+                    sess.reads_found == sess.reads_processed:
+                sess.finalize_results()
                 sess.show_message('==> Finished.')
                 return sess.finalsummary_tracker.print_results
-            sess.show_message('==> Terminated.')
+            if sess.scan_finished:
+                sess.show_message('==> Terminated.')
             return None

@@ -1,5 +1,5 @@
-"""Small host-side utilities: stderr printing, directory creation, interval
-union, the per-read unknown_error report, and per-stage wall-time
+"""Small host-side utilities: stderr printing and exit, directory creation,
+interval union, the per-read unknown_error report, and per-stage wall-time
 accounting."""
 
 import contextlib
@@ -14,6 +14,12 @@ from collections import defaultdict
 def errprint(*args, **kwargs):
     kwargs.setdefault('file', sys.stderr)
     print(*args, **kwargs)
+
+
+def errx(message):
+    """Print to stderr and exit with status 1."""
+    errprint(message)
+    sys.exit(1)
 
 
 def ensure_dir_exists(filepath):

@@ -49,7 +49,10 @@ def loaded_after_importing_the_port(packages, missing=()):
 
 
 def test_importing_every_module_loads_no_jax():
-    assert 'poreplex_torch.training.train_demux' in port_modules()
+    modules = set(port_modules())
+    assert {'poreplex_torch.training.train_demux',
+            'poreplex_torch.commandline', 'poreplex_torch.__main__',
+            'poreplex_torch.pipeline.source'} <= modules
     assert loaded_after_importing_the_port(FORBIDDEN) == ''
 
 
@@ -145,15 +148,28 @@ def test_wrappers_refuse_other_devices():
 
 
 @pytest.mark.parametrize('option,value', [
-    ('dashboard', True), ('resume', True), ('albacore_onthefly', True), ('live', True), ('fast5_output', True),
-    ('nanopolish_output', True), ('dump_adapter_signals', True),
-    ('dump_basecalls', True), ('minimap2_index', 'ref.mmi'),
-    ('num_nodes', 2)])
+    ('dashboard', True), ('albacore_onthefly', True),
+    ('minimap2_index', 'ref.mmi'), ('num_nodes', 2)])
 def test_later_slice_options_raise(tmp_path, option, value):
     from poreplex_torch.config import build_config
     with pytest.raises(NotImplementedError, match='not ported yet'):
         build_config(str(tmp_path), str(tmp_path), device='cpu',
                      **{option: value})
+
+
+@pytest.mark.parametrize('option', ['resume', 'live', 'fast5_output',
+                                    'nanopolish_output',
+                                    'dump_adapter_signals',
+                                    'dump_basecalls'])
+def test_ported_session_options_build(tmp_path, option):
+    """The session options ported with the command line build on the CPU
+    when asked and want CUDA by default."""
+    from poreplex_torch.config import build_config
+    config = build_config(str(tmp_path), str(tmp_path), device='cpu',
+                          **{option: True})
+    assert config[option] is True
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        build_config(str(tmp_path), str(tmp_path), **{option: True})
 
 
 @pytest.mark.parametrize('option', ['measure_polya',

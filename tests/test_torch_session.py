@@ -1,9 +1,9 @@
 """A poreplex_torch session (on the CPU) and a poreplex_tpu session on the
 same fixture, built with the recipe of tests/test_golden_session.py, write
-byte-identical sequencing summaries and FASTQ files: with barcoding and
-adapter trimming on, and again with poly(A) and the unsplit filter on as
-well, where the torch session's canonical outputs also equal
-tests/golden/session_golden.json."""
+byte-identical files (the sequencing summary, the FASTQ streams and the
+processed-reads manifest): with barcoding and adapter trimming on, and
+again with poly(A) and the unsplit filter on as well, where the torch
+session's canonical outputs also equal tests/golden/session_golden.json."""
 
 import gzip
 import json
@@ -15,9 +15,6 @@ import pytest
 from poreplex_tpu import simulate
 from test_golden_session import GOLDEN_PATH, _canonical_outputs
 
-# the JAX session's resume journal; resume belongs to a later slice
-NOT_PORTED = {'.processed-reads'}
-
 
 def output_files(outputdir):
     """{relative path: bytes} of every file a session wrote."""
@@ -25,10 +22,8 @@ def output_files(outputdir):
     for root, _, names in os.walk(outputdir):
         for name in names:
             path = os.path.join(root, name)
-            rel = os.path.relpath(path, outputdir)
-            if rel not in NOT_PORTED:
-                with open(path, 'rb') as f:
-                    files[rel] = f.read()
+            with open(path, 'rb') as f:
+                files[os.path.relpath(path, outputdir)] = f.read()
     return files
 
 
@@ -98,6 +93,7 @@ def test_fastq_identical(both_sessions):
     for path in fastq:
         assert got[path] == ref[path], path
     assert set(got) == set(ref)
+    assert got['.processed-reads'] == ref['.processed-reads']
 
 
 def test_final_summary_prints(both_sessions, tmp_path):

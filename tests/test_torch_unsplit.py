@@ -194,7 +194,7 @@ def test_fused_read_is_artifact_as_in_jax(tmp_path):
         config['signal_processing']['scaler_input_length'] = 3000
         return config
 
-    got = BatchAnalyzer(reduce_shapes(build_config(
+    got, _ = BatchAnalyzer(reduce_shapes(build_config(
         inp, str(tmp_path / 'out'), device='cpu', **options))
         ).process_batch(reads)
     ref, _ = process_batch(0, reads, reduce_shapes(jax_build_config(
