@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of poreplex_torch on one CUDA card.
 
-    python3 chip_smoke.py            (from the repository root)
+    python3 chip_smoke.py               (from the repository root)
+    python3 chip_smoke.py --multi-card  (step 7's phases alone, for a host
+                                         of several cards)
 
 1. builds the CUDA kernels from poreplex_torch/csrc/ (one nvcc per source,
    all at once) and prints the card's name and power limit;
@@ -58,8 +60,26 @@
    where kernels 1 to 3 must launch and agree within 5e-5 with the
    training forward on the held-out windows and heads; then whether
    libhdf5 can be dlopened (a probe, never a failure);
-7. prints the run's time, a JSON line of the kernels, the card's name and
-   power limit, then {"ok": true, ...} last.
+7. several cards (on one card, the sharded code on that card): each of the
+   seven wrappers on tensors on every visible card with cuda:0 current,
+   against its plain version; the main path's reads through a
+   BatchAnalyzer on one card, on meshes of 2 and 4 cards where visible,
+   and on a mesh of every visible card ([cuda:0, cuda:0] on one card):
+   every report equal to one card's, stage 1's decisions exact and its
+   scaling and probabilities within 5e-5, every kernel launched on every
+   card of the mesh (the profiler's device ids on a mesh of several
+   entries), reads/s of each; then
+   ranks, processes of this script with one card each (two sharing
+   cuda:0 on one card, else one a card up to four), each running
+   commandline.main with --num-nodes, --node-rank and --coordinator over
+   512 reads it makes from the seed: disjoint manifests, summary rows and
+   rank 0's merged counts equal to one process's run of the same reads,
+   reads/s from the first rank's start to the last rank's end. Steps 2
+   to 6 run on cuda:0 alone (mesh_shape 1) whatever the card count;
+8. prints the run's time, a JSON line of the kernels, the card's name and
+   power limit, then {"ok": true, ...} last. With --multi-card only step
+   1, step 7 (the mesh over the ranks' 512 reads) and the last two lines
+   run.
 
 Any failure raises and exits non-zero before the last line is printed.
 """
@@ -570,6 +590,18 @@ def kernel_line(row):
     return line
 
 
+def make_reads(rng, n):
+    """The main path's simulated reads: transcripts of about 200 to 2,000
+    nt (43 raw samples a base); one read in TWO_MOLECULES_EVERY holds a
+    second leader and adapter."""
+    from poreplex_torch import simulate
+    return [simulate.simulate_read(
+        rng, transcript_len=int(rng.integers(*TRANSCRIPT_SAMPLES)),
+        polya_len=int(rng.integers(*POLYA_SAMPLES)), barcode=i % 4,
+        **(TWO_MOLECULES if two_molecules(i) else {}))
+        for i in range(n)]
+
+
 def run_main_path(config, rng):
     """512 simulated reads through BatchAnalyzer on the card, written with
     the port's writers. Launch counts and stage timers are reset just
@@ -584,13 +616,7 @@ def run_main_path(config, rng):
     from poreplex_torch.utils import GLOBAL_TIMER
 
     analyzer = BatchAnalyzer(config)
-    # transcripts of about 200 to 2,000 nt (43 raw samples a base); one
-    # read in TWO_MOLECULES_EVERY holds a second leader and adapter
-    reads = [simulate.simulate_read(
-        rng, transcript_len=int(rng.integers(*TRANSCRIPT_SAMPLES)),
-        polya_len=int(rng.integers(*POLYA_SAMPLES)), barcode=i % 4,
-        **(TWO_MOLECULES if two_molecules(i) else {}))
-        for i in range(N_READS)]
+    reads = make_reads(rng, N_READS)
     t0 = time.perf_counter()
     results, records = [], []
     for read in reads:
@@ -914,7 +940,8 @@ def session_through_cli(config, results, reads, main_outdir, card):
         argv = ['-i', indir, '-o', outdir, '-y', '-q', '--barcoding',
                 '--barcoding-quality-filter', str(BARCODE_PHRED), '--polya',
                 '--filter-chimera', '--trim-adapter', '--batch-size',
-                str(BATCH), '--device-batch-size', str(BATCH)]
+                str(BATCH), '--device-batch-size', str(BATCH),
+                '--mesh-shape', '1']
         result, wall_s, launches, stages = run_cli(argv, source)
         if result is None:
             raise AssertionError('the CLI session did not finish')
@@ -1258,10 +1285,543 @@ def libhdf5_line():
         ctypes.util.find_library('hdf5'))
 
 
-def main():
+# ----------------------------------------------------------------------
+# several cards: the kernels on every card, the mesh of one process, ranks
+
+# wrapper -> its kernel function, as the profiler names it
+KERNEL_FUNCTIONS = {
+    'lstm2_stacked': 'lstm2_stacked_kernel',
+    'bidirectional_lstm': 'bilstm_kernel',
+    'lstm_last': 'lstm_last_kernel',
+    'viterbi_extents': 'viterbi_extents_kernel',
+    'viterbi': 'viterbi_path_kernel',
+    'detect_peaks': 'peaks_kernel',
+    'polya_dp': 'dp_kernel',
+}
+# the stage timers each mesh line gives
+MESH_STAGES = ('B:device_stage1', 'C:polya', 'C:polya/launch',
+               'C:polya/collect', 'C:unsplit_viterbi')
+# reads of the ranks' phase (and of the mesh under --multi-card), from a
+# generator of their own: every rank makes them from the seed
+RANK_READS = N_READS
+RANK_SEED = SEED + 4
+# a rank's bound on its whole run, start-up and simulation included
+RANK_TIMEOUT = 600
+
+
+def synchronize_all():
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+
+
+@torch.inference_mode()
+def check_every_card(config):
+    """Each of the seven wrappers on tensors on cuda:k, for every visible
+    card k, with cuda:0 current, at small shapes against its plain version
+    on the same inputs: the LSTMs within LSTM_ATOL, the Viterbi extents
+    and paths, the peak emissions and the DP intervals exactly, the
+    Viterbi logp within LOGP_RTOL relative. The launch must leave cuda:0
+    current."""
+    from poreplex_torch.kernels import (event_detection as ked,
+                                        lstm as klstm, polya_dp as kdp,
+                                        viterbi as kvit)
+    from poreplex_torch.ops import (event_detection as ed, polya_dp as dp_ops,
+                                    rnn, viterbi as vit_ops)
+    from poreplex_torch.pipeline.engine import DeviceEngine
+    p = config['polya_dwell']['event_detection']
+    peak_args = (float(p['threshold1']), float(p['threshold2']),
+                 p['window_length1'], p['window_length2'],
+                 float(p['peak_height']))
+    torch.cuda.set_device(0)
+    for k in range(torch.cuda.device_count()):
+        dev = torch.device('cuda', k)
+        rng = np.random.default_rng(SEED + 10 + k)
+        engine = DeviceEngine(config, device=dev)
+        scaler, demux = engine.scaler, engine.demux
+
+        def on(a):
+            return torch.as_tensor(a, device=dev)
+        heads = on(rng.normal(90, 12, (8, 200, 1)).astype(np.float32))
+        windows = on(rng.normal(0, 1, (8, 100, 1)).astype(np.float32))
+        seq = rnn.bidirectional_lstm(demux.bilstm_fwd, demux.bilstm_bwd,
+                                     windows)
+        xs, lens = viterbi_inputs(rng, 1200)
+        x, lengths = on(xs[:8]), on(lens[:8])
+        ev_x = on((rng.choice([71.5, 102.1, 112.0, 80.5, 108.95], (8, 38))
+                   .repeat(8, axis=1) + rng.normal(0, 3.0, (8, 304)))
+                  .astype(np.float32))
+        ev_len = on(rng.integers(150, 305, 8).astype(np.int32))
+        pw, plen = polya_windows(rng, 8, 2048)
+        pw, plen = on(pw), on(plen)
+        _, cs, css = ed._centered_cumsums(pw, plen)
+        t1 = ed.compute_tstat(cs, css, plen, p['window_length1'])
+        t2 = ed.compute_tstat(cs, css, plen, p['window_length2'])
+        mask_a = on(rng.uniform(size=(8, 64)) < 0.6)
+        mask_b = on(rng.uniform(size=(8, 64)) < 0.6)
+        dp_len = on(rng.integers(1, 300, (8, 64)).astype(np.float32))
+        dp_n = on(rng.integers(8, 65, 8).astype(np.int32))
+        # name: (kernel call, plain call, how held)
+        cases = {
+            'lstm2_stacked': (
+                lambda: klstm.lstm2_stacked(scaler.lstm1, scaler.lstm2,
+                                            heads),
+                lambda: rnn.lstm2_stacked(scaler.lstm1, scaler.lstm2, heads),
+                'atol'),
+            'bidirectional_lstm': (
+                lambda: klstm.bidirectional_lstm(demux.bilstm_fwd,
+                                                 demux.bilstm_bwd, windows),
+                lambda: seq, 'atol'),
+            'lstm_last': (
+                lambda: klstm.lstm_last(demux.lstm2, seq),
+                lambda: rnn.lstm(demux.lstm2, seq, return_sequences=False),
+                'atol'),
+            'viterbi_extents': (
+                lambda: kvit.viterbi_extents(x, lengths,
+                                             *engine.segmodel.params()),
+                lambda: vit_ops.viterbi_extents(x, lengths,
+                                                *engine.segmodel.params()),
+                'logp'),
+            'viterbi': (
+                lambda: kvit.viterbi(ev_x, ev_len,
+                                     *engine.unsplitmodel.params()),
+                lambda: vit_ops.viterbi(ev_x, ev_len,
+                                        *engine.unsplitmodel.params()),
+                'logp'),
+            # the plain detector on CPU copies (its loop of small launches
+            # is slow on a card)
+            'detect_peaks': (
+                lambda: ked.detect_peaks(t1, t2, plen, *peak_args),
+                lambda: ed.detect_peaks(t1.cpu(), t2.cpu(), plen.cpu(),
+                                        *peak_args), 'exact'),
+            'polya_dp': (
+                lambda: kdp.dp(mask_a, mask_b, dp_len, dp_n, 1.5, 110),
+                lambda: dp_ops.dp_core(
+                    torch.cat([mask_a, mask_b]), torch.cat([dp_len] * 2),
+                    torch.cat([dp_n] * 2), 1.5, 110), 'exact'),
+        }
+        held = []
+        for name, (kernel, plain, how) in cases.items():
+            got = kernel()
+            if torch.cuda.current_device() != 0:
+                raise AssertionError('{} on {} left cuda:{} current'.format(
+                    name, dev, torch.cuda.current_device()))
+            ref = plain()
+            got = [got] if how == 'atol' else list(got)
+            ref = [ref] if how == 'atol' else list(ref)
+            if any(g.device != dev for g in got):
+                raise AssertionError('{}: output not on {}'.format(name, dev))
+            got, ref = [g.cpu() for g in got], [r.cpu() for r in ref]
+            if how == 'atol':
+                err = float((got[0] - ref[0]).abs().max())
+                ok = np.isfinite(err) and err <= LSTM_ATOL
+            else:
+                exact = got[:-1] if how == 'logp' else got
+                err = sum(int((a != b).sum()) for a, b in
+                          zip(exact, ref[:len(exact)]))
+                ok = err == 0
+                if how == 'logp':
+                    rel = float(((got[-1] - ref[-1]).abs() /
+                                 ref[-1].abs().clamp(min=1.0)).max())
+                    ok = ok and rel <= LOGP_RTOL
+            if not ok:
+                raise AssertionError('{} on {} with cuda:0 current: {} vs '
+                                     'the plain version'.format(name, dev,
+                                                                err))
+            held.append(name)
+        synchronize_all()
+        log('kernels on {} ({}) with cuda:0 current: {} == plain version'
+            .format(dev, torch.cuda.get_device_name(dev), ', '.join(held)))
+        del engine
+
+
+def launches_by_card(fn):
+    """fn() under the profiler (device trace): ({wrapper: {card index:
+    kernel launches}} from the device ids of its kernel events, {card
+    index: device busy ms}, the wall ms). Busy is the union of a card's
+    kernel and copy intervals, as profile() counts it."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    synchronize_all()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        synchronize_all()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    patterns = {name: re.compile(r'\b{}\b'.format(kernel))
+                for name, kernel in KERNEL_FUNCTIONS.items()}
+    counts = {name: {} for name in KERNEL_FUNCTIONS}
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation() or
+                e.name().startswith('Activity Buffer')):
+            continue
+        spans.setdefault(e.device_index(), []).append(
+            (e.start_ns() / 1e6, e.end_ns() / 1e6))
+        for name, pattern in patterns.items():
+            if pattern.search(e.name()):
+                card = counts[name]
+                card[e.device_index()] = card.get(e.device_index(), 0) + 1
+    busy = {}
+    for card, intervals in sorted(spans.items()):
+        total, end = 0.0, float('-inf')
+        for start, stop in sorted(intervals):
+            total += max(0.0, stop - max(start, end))
+            end = max(end, stop)
+        busy[card] = total
+    return counts, busy, wall_ms
+
+
+def mesh_records(analyzer, reads):
+    from poreplex_torch import simulate
+    from poreplex_torch.pipeline.read import ReadRecord
+    stopped, records = [], []
+    for read in reads:
+        rec = ReadRecord('simulated.fast5', analyzer.inputdir, read.read_id)
+        analyzer.add_read(rec, simulate.MemoryRead(read), stopped, records)
+    return stopped, records
+
+
+def run_mesh(config, reads, devices):
+    """The reads through one BatchAnalyzer on ``devices``, after an untimed
+    pass over the same reads (PyTorch's kernels loaded on every card, at
+    the timed pass's shapes). The launch counts are reset just before the
+    timed pass and read just after. Returns (results, stage-1 outputs,
+    wall seconds of process_batch, launches, launches by card: of a
+    profiled pass over several devices, else the launches; that pass's
+    ({card: device busy ms}, wall ms), or None; the timed pass's stage
+    timers)."""
+    from poreplex_torch import kernels
+    from poreplex_torch.pipeline.analyzer import BatchAnalyzer
+    from poreplex_torch.utils import GLOBAL_TIMER
+    analyzer = BatchAnalyzer(config, devices=devices)
+    analyzer.process_batch(None, mesh_records(analyzer, reads))
+    preloaded = mesh_records(analyzer, reads)
+    stage1 = {}
+    run_stage1 = analyzer.run_stage1
+
+    def keep_stage1(recs):
+        stage1.update(run_stage1(recs))
+        return stage1
+    analyzer.run_stage1 = keep_stage1
+    synchronize_all()
+    GLOBAL_TIMER.totals.clear()
+    GLOBAL_TIMER.counts.clear()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    results, _ = analyzer.process_batch(None, preloaded)
+    synchronize_all()
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    stages = GLOBAL_TIMER.snapshot()
+    del analyzer.run_stage1
+    if len(devices) == 1:
+        by_card = {name: {devices[0].index: n}
+                   for name, n in launches.items()}
+        busy = None
+    else:
+        by_card, busy_ms, profiled_ms = launches_by_card(
+            lambda: analyzer.process_batch(None,
+                                           mesh_records(analyzer, reads)))
+        busy = (busy_ms, profiled_ms)
+    return results, stage1, wall_s, launches, by_card, busy, stages
+
+
+def same_result(a, b, where):
+    """Equal report values, floats within LSTM_ATOL; returns a mismatch's
+    path, or None."""
+    if isinstance(a, float) or isinstance(b, float):
+        return None if abs(a - b) <= LSTM_ATOL else where
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return where
+        for k in a:
+            bad = same_result(a[k], b[k], '{}.{}'.format(where, k))
+            if bad:
+                return bad
+        return None
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return where
+        for i, (x, y) in enumerate(zip(a, b)):
+            bad = same_result(x, y, '{}[{}]'.format(where, i))
+            if bad:
+                return bad
+        return None
+    return None if a == b else where
+
+
+def check_mesh(config, reads, card):
+    """The reads through a BatchAnalyzer on one card, then on meshes of 2
+    and 4 cards where that many are visible, and on a mesh of every
+    visible card, or [cuda:0, cuda:0] on one card (the sharded code on
+    one card), then on one card again (the runs are timed in turns):
+    every report equal to the first run's (floats within LSTM_ATOL:
+    extents, QC, demux labels, poly(A) begin, end and dwell and unsplit
+    decisions exact), stage 1's decisions exact and its scaling and demux
+    probabilities within LSTM_ATOL, every kernel launched on every card
+    of the mesh. Prints reads/s of each and the launches of each kernel
+    by card."""
+    count = torch.cuda.device_count()
+    cuda = [torch.device('cuda', k) for k in range(count)]
+    meshes = [cuda[:1]] + [cuda[:d] for d in (2, 4) if d < count] + \
+        [cuda if count > 1 else cuda[:1] * 2] + [cuda[:1]]
+    runs = []
+    for devices in meshes:
+        results, stage1, wall_s, launches, by_card, busy, stages = run_mesh(
+            config, reads, devices)
+        names = ', '.join(str(d) for d in devices)
+        missing = [k for k, v in launches.items() if v == 0]
+        unused = sorted({(name, d.index) for name in KERNEL_FUNCTIONS
+                         for d in devices
+                         if not by_card[name].get(d.index)})
+        if missing or unused:
+            raise AssertionError('mesh [{}]: never launched {}; no launch '
+                                 'of (kernel, card) {}'.format(
+                                     names, missing, unused))
+        log('mesh [{}]: {} reads, {:.1f} reads/s ({:.3f} s of '
+            'process_batch); launches {}; launches by card{} {}; stage '
+            'timers (s) {}{}; {}'.format(
+                names, len(reads), len(reads) / wall_s, wall_s,
+                json.dumps(launches),
+                ' (profiler device ids)' if len(devices) > 1 else '',
+                json.dumps(by_card), json.dumps({
+                    k: round(stages[k]['total_s'], 4) for k in MESH_STAGES
+                    if k in stages}),
+                '' if busy is None else '; a profiled pass: wall {:.1f} ms, '
+                'device busy by card {}'.format(busy[1], ', '.join(
+                    '{} {:.2f} ms ({:.1%})'.format(k, ms, ms / busy[1])
+                    for k, ms in busy[0].items())),
+                card))
+        runs.append((devices, results, stage1))
+    _, ref, ref_stage1 = runs[0]
+    for devices, results, stage1 in runs[1:]:
+        names = ', '.join(str(d) for d in devices)
+        if [r['read_id'] for r in results] != [r['read_id'] for r in ref]:
+            raise AssertionError('mesh [{}]: reads out of order'.format(
+                names))
+        for a, b in zip(results, ref):
+            bad = same_result(a, b, a['read_id'])
+            if bad:
+                raise AssertionError('mesh [{}]: {} differs from one '
+                                     'card'.format(names, bad))
+        for key in ('first', 'last', 'present', 'qc_ok', 'demux_ok'):
+            if not np.array_equal(stage1[key], ref_stage1[key]):
+                raise AssertionError('mesh [{}]: stage-1 {} differs'.format(
+                    names, key))
+        for key in ('scaling', 'demux_probs'):
+            err = float(np.abs(stage1[key] - ref_stage1[key]).max())
+            if not err <= LSTM_ATOL:
+                raise AssertionError('mesh [{}]: stage-1 {} err {}'.format(
+                    names, key, err))
+        log('mesh [{}] == the first one-card run for {} reads ({} tails, '
+            '{} unsplit; reports equal, stage-1 decisions exact, scaling and '
+            'demux probabilities within {})'.format(
+                names, len(results), sum('polya' in r for r in results),
+                sum(r['status'] == 'unsplit_read' for r in results),
+                LSTM_ATOL))
+
+
+def rank_argv(indir, outdir):
+    return ['-i', indir, '-o', outdir, '-y', '-q', '--barcoding',
+            '--barcoding-quality-filter', str(BARCODE_PHRED), '--polya',
+            '--filter-chimera', '--trim-adapter', '--batch-size', str(BATCH),
+            '--device-batch-size', str(BATCH), '--mesh-shape', '1']
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def wait_for(paths, what, timeout=RANK_TIMEOUT):
+    t0 = time.time()
+    while not all(os.path.exists(p) for p in paths):
+        if time.time() - t0 > timeout:
+            raise AssertionError('timed out waiting for ' + what)
+        time.sleep(0.01)
+
+
+def rank_main(argv):
+    """One rank of the ranks' phase, started by check_ranks:
+    ``--rank R RANKS PORT WORKDIR``. Makes the reads from the seed, warms
+    its card up once the one process's run is over, waits for the others
+    and the start signal, then runs commandline.main over its share and
+    writes rank-R.json."""
+    from poreplex_torch import commandline, kernels
+    from poreplex_torch.config import build_config
+    from poreplex_torch.pipeline.analyzer import BatchAnalyzer
+    from poreplex_torch.pipeline.source import MemorySource
+    rank, ranks, port, work = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    reads = make_reads(np.random.default_rng(RANK_SEED), RANK_READS)
+    indir = os.path.join(work, 'in')
+    outdir = os.path.join(work, 'rank-{}'.format(rank))
+    wait_for([os.path.join(work, 'warm')], 'the warm-up signal')
+    with tempfile.TemporaryDirectory() as tmp:
+        warm = BatchAnalyzer(build_config(
+            tmp, tmp, barcoding=True, trim_adapter=True, mesh_shape=1,
+            measure_polya=True, filter_unsplit_reads=True))
+        warm.process_batch(None, mesh_records(warm, reads[:16]))
+        del warm
+    torch.cuda.synchronize()
+    with open(os.path.join(work, 'ready-{}'.format(rank)), 'w'):
+        pass
+    wait_for([os.path.join(work, 'go')], 'the start signal')
+    args = commandline.parse_args(rank_argv(indir, outdir) + [
+        '--num-nodes', str(ranks), '--node-rank', str(rank),
+        '--coordinator', '127.0.0.1:{}'.format(port)])
+    kernels.reset_launches()
+    start = time.time()
+    printer = commandline.main(args, source=MemorySource(reads))
+    torch.cuda.synchronize()
+    end = time.time()
+    header, rows = summary_rows(outdir)
+    with open(os.path.join(outdir, '.processed-reads')) as f:
+        manifest = sorted(line.split('\t')[1] for line in f.read().split(
+            '\n') if line)
+    out = {'rank': rank, 'start': start, 'end': end,
+           'launches': dict(kernels.launches), 'header': header,
+           'rows': rows, 'manifest': manifest,
+           'counts': None if printer is None else sorted(
+               [list(map(str, key)), value]
+               for key, value in printer.__self__.counts.items()),
+           'card': torch.cuda.get_device_name(0),
+           'visible': os.environ.get('CUDA_VISIBLE_DEVICES')}
+    with open(os.path.join(work, 'rank-{}.json'.format(rank)), 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
+def check_ranks(card, reads=None):
+    """Ranks, each a process of this script (rank_main) with one card
+    through CUDA_VISIBLE_DEVICES: one a card up to four when two or more
+    are visible, else two sharing cuda:0. Each makes the RANK_READS reads
+    from RANK_SEED and runs commandline.main with --num-nodes, --node-rank
+    and --coordinator over them. Meanwhile this process runs the same
+    reads through the command line alone. The ranks' manifests are
+    disjoint, their summary rows together are the one process's, rank 0's
+    merged counts are its counts, and every rank launches every kernel.
+    Prints reads/s from the first rank's start to the last rank's end
+    (ranks start together, after simulating their reads and warming their
+    cards up, which they do once the one process's run is over). ``reads``:
+    the RANK_READS reads of RANK_SEED where the caller has them."""
+    from poreplex_torch.pipeline.source import MemorySource
+    count = torch.cuda.device_count()
+    ranks = min(4, count) if count > 1 else 2
+    visible = os.environ.get('CUDA_VISIBLE_DEVICES')
+    cards = (visible.split(',') if visible else
+             [str(k) for k in range(count)])
+    cards = cards[:ranks] if count > 1 else cards[:1] * ranks
+    port = free_port()
+    with tempfile.TemporaryDirectory() as work:
+        os.makedirs(os.path.join(work, 'in'))
+        procs = []
+        try:
+            for rank in range(ranks):
+                logf = open(os.path.join(work, 'log-{}'.format(rank)), 'w')
+                procs.append((subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), '--rank',
+                     str(rank), str(ranks), str(port), work],
+                    stdout=logf, stderr=subprocess.STDOUT,
+                    env=dict(os.environ, CUDA_VISIBLE_DEVICES=cards[rank])),
+                    logf))
+            # the one process, while the ranks simulate and warm up
+            if reads is None:
+                reads = make_reads(np.random.default_rng(RANK_SEED),
+                                   RANK_READS)
+            outdir = os.path.join(work, 'one')
+            result, wall_s, launches, _ = run_cli(
+                rank_argv(os.path.join(work, 'in'), outdir),
+                MemorySource(reads))
+            if result is None:
+                raise AssertionError('the one-process CLI run did not finish')
+            header, rows = summary_rows(outdir)
+            counts = sorted([list(map(str, key)), value]
+                            for key, value in result.__self__.counts.items())
+            with open(os.path.join(outdir, '.processed-reads')) as f:
+                manifest = sorted(line.split('\t')[1] for line in
+                                  f.read().split('\n') if line)
+            log('ranks: one process over the {} reads: {:.1f} reads/s '
+                '({:.3f} s); {}'.format(len(reads), len(reads) / wall_s,
+                                        wall_s, card))
+            with open(os.path.join(work, 'warm'), 'w'):
+                pass
+            wait_for([os.path.join(work, 'ready-{}'.format(r))
+                      for r in range(ranks)], 'the ranks to warm up')
+            with open(os.path.join(work, 'go'), 'w'):
+                pass
+            for proc, logf in procs:
+                code = proc.wait(timeout=RANK_TIMEOUT)
+                if code != 0:
+                    raise AssertionError('a rank exited with {}'.format(code))
+        except BaseException:
+            for proc, logf in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for rank in range(len(procs)):
+                with open(os.path.join(work, 'log-{}'.format(rank))) as f:
+                    log('rank {} log:\n{}'.format(rank, f.read()[-3000:]))
+            raise
+        finally:
+            for _, logf in procs:
+                logf.close()
+        outs = []
+        for rank in range(ranks):
+            with open(os.path.join(work, 'rank-{}.json'.format(rank))) as f:
+                outs.append(json.load(f))
+    owned = [set(o['manifest']) for o in outs]
+    if sum(len(m) for m in owned) != len(set().union(*owned)):
+        raise AssertionError('the ranks\' manifests overlap')
+    if set().union(*owned) != set(manifest) or not all(owned):
+        raise AssertionError('the ranks\' manifests are not the one '
+                             'process\'s')
+    merged_rows = {}
+    for o in outs:
+        merged_rows.update(o['rows'])
+        if o['header'] != header:
+            raise AssertionError('rank {}: another summary header'.format(
+                o['rank']))
+    if merged_rows != rows:
+        differ = sorted(k for k in set(rows) | set(merged_rows)
+                        if rows.get(k) != merged_rows.get(k))
+        raise AssertionError('the ranks\' summary rows differ from the one '
+                             'process\'s, e.g. {}'.format(differ[:3]))
+    if outs[0]['counts'] != counts or any(o['counts'] is not None
+                                          for o in outs[1:]):
+        raise AssertionError('rank 0\'s merged counts {} are not the one '
+                             'process\'s {}'.format(outs[0]['counts'],
+                                                    counts))
+    for o in outs:
+        missing = [k for k, v in o['launches'].items() if v == 0]
+        if missing:
+            raise AssertionError('rank {} never launched {}'.format(
+                o['rank'], missing))
+    span = max(o['end'] for o in outs) - min(o['start'] for o in outs)
+    log('ranks: {} ranks on CUDA_VISIBLE_DEVICES {}: {} reads in {:.3f} s '
+        'from the first rank\'s start to the last rank\'s end, {:.1f} '
+        'reads/s; rank runs {}; reads a rank {}; launches by rank {}; '
+        'manifests disjoint, summary rows and rank 0\'s merged counts equal '
+        'to the one process\'s; {}'.format(
+            ranks, [o['visible'] for o in outs], len(rows), span,
+            len(rows) / span,
+            ['{:.3f} s'.format(o['end'] - o['start']) for o in outs],
+            [len(o['rows']) for o in outs],
+            json.dumps([o['launches'] for o in outs]), card))
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
+    if argv[:1] == ['--rank']:
+        return rank_main(argv[1:])
+    multi_card = argv == ['--multi-card']
+    if argv and not multi_card:
+        print('usage: chip_smoke.py [--multi-card]', file=sys.stderr)
+        return 2
     from poreplex_torch.config import build_config
     from poreplex_torch.kernels import _build
     from poreplex_torch.pipeline.engine import DeviceEngine
@@ -1280,11 +1840,25 @@ def main():
                                         torch.cuda.get_device_name(0)))
 
     with tempfile.TemporaryDirectory() as outdir:
+        # the phases of one card run on cuda:0 whatever the card count
         config = build_config(outdir, outdir, barcoding=True,
                               trim_adapter=True, device='cuda',
                               device_batch_size=BATCH,
                               barcoding_quality_filter=BARCODE_PHRED,
-                              measure_polya=True, filter_unsplit_reads=True)
+                              measure_polya=True, filter_unsplit_reads=True,
+                              mesh_shape=1)
+        if multi_card:
+            check_every_card(config)
+            reads = make_reads(np.random.default_rng(RANK_SEED), RANK_READS)
+            check_mesh(config, reads, card)
+            check_ranks(card, reads)
+            log('chip_smoke --multi-card took {:.1f} s'.format(
+                time.perf_counter() - t0))
+            print(card)
+            print(json.dumps({'ok': True, 'device': {
+                'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+                'count': torch.cuda.device_count()}}))
+            return 0
         rng = np.random.default_rng(SEED)
 
         engine = DeviceEngine(config)
@@ -1340,6 +1914,9 @@ def main():
         profile_batch(analyzer, list(reads.values())[:BATCH])
         del analyzer
         session_through_cli(config, results, reads, outdir, card)
+        check_every_card(config)
+        check_mesh(config, list(reads.values()), card)
+        check_ranks(card)
 
     training_step_parity()
     with tempfile.TemporaryDirectory() as outdir:
@@ -1370,4 +1947,4 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -3,10 +3,13 @@ on the CUDA device unless ``--cpu`` is given.
 
 Console entry point: ``poreplex-torch`` (also ``python -m poreplex_torch``).
 The TPU knobs (``--pallas``, ``--prewarm``) have no counterpart. The options
-of stages the port does not carry yet (``--basecall``, ``--align``,
-``--mesh-shape`` and the multi-host options) are accepted and stop the run
-with an error naming the slice they wait for; ``--dashboard`` is turned
-off, as in poreplex-tpu, because it needs ``--align``.
+of stages the port does not carry yet (``--basecall``, ``--align``) are
+accepted and stop the run with an error naming the slice they wait for;
+``--dashboard`` is turned off, as in poreplex-tpu, because it needs
+``--align``. ``--mesh-shape`` spreads each batch over that many cards of
+this process; ``--num-nodes``, ``--node-rank`` and ``--coordinator`` make
+this process one rank of several, each analysing its own share of the
+reads (parallel/distributed.py).
 """
 
 import argparse
@@ -60,10 +63,6 @@ OUTPUT_SUBDIRS = (
 REFUSED_OPTIONS = (
     ('basecall', '--basecall', 'albacore_onthefly'),
     ('align', '--align', 'minimap2_index'),
-    ('mesh_shape', '--mesh-shape', 'num_nodes'),
-    ('num_nodes', '--num-nodes', 'num_nodes'),
-    ('node_rank', '--node-rank', 'num_nodes'),
-    ('coordinator', '--coordinator', 'num_nodes'),
 )
 
 
@@ -197,6 +196,10 @@ def config_options(args):
         parallel=max(1, args.parallel),
         nobasecall_stop_trigger=1000,
         device='cpu' if args.cpu else 'cuda',
+        mesh_shape=args.mesh_shape,
+        num_nodes=args.num_nodes,
+        node_rank=args.node_rank,
+        coordinator=args.coordinator,
     )
 
 
@@ -220,6 +223,12 @@ def main(args, source=None):
     test_inputs_and_outputs(config)
     create_output_directories(config)
 
+    # every rank joins the process group before its session starts
+    from .parallel import distributed
+    try:
+        distributed.initialize_from_config(config)
+    except ValueError as exc:
+        errx('ERROR: {}'.format(exc))
     logger, handler = init_logging(config)
     try:
         logger.info('Starting poreplex-torch version {}'.format(__version__))
@@ -239,6 +248,7 @@ def main(args, source=None):
 
         logger.info('Finished.')
     finally:
+        distributed.shutdown()
         logger.removeHandler(handler)
         handler.close()
 
@@ -362,18 +372,20 @@ def build_parser():
                             'versions of the kernels) instead of the CUDA '
                             'device')
     group.add_argument('--mesh-shape', default=None, type=int, metavar='N',
-                       help='number of local devices (not ported yet: '
-                            'stops with an error)')
+                       help='number of local CUDA cards each batch is '
+                            'spread over (default: every visible card; '
+                            'with --cpu, N entries of the CPU)')
 
     group = parser.add_argument_group('Distributed (multi-host)')
     group.add_argument('--num-nodes', default=None, type=int, metavar='N',
-                       help='total number of hosts (not ported yet: stops '
-                            'with an error)')
+                       help='total number of ranks (processes), each '
+                            'analysing its own share of the reads')
     group.add_argument('--node-rank', default=None, type=int, metavar='I',
-                       help='rank of this host (not ported yet)')
+                       help='rank of this process, 0 to N-1; rank 0 prints '
+                            'the merged counts')
     group.add_argument('--coordinator', default=None, metavar='HOST:PORT',
-                       help='coordinator address of host 0 (not ported '
-                            'yet)')
+                       help='address where rank 0 listens for the others '
+                            '(torch.distributed, gloo over TCP)')
     group.add_argument('--resume', default=False, action='store_true',
                        help='keep the output directory and skip reads '
                             'recorded in its processed-read manifest (the '

@@ -101,11 +101,14 @@ DEFAULT_OPTIONS = dict(
     device='cuda',           # 'cuda' | 'cuda:N' | 'cpu'
     measure_polya=False,
     filter_unsplit_reads=False,
+    mesh_shape=None,         # cards in one process (None: every visible)
+    num_nodes=None,          # ranks of a multi-process run
+    node_rank=None,
+    coordinator=None,        # HOST:PORT of rank 0's process-group store
     # stages of later slices of the port: must stay off
     albacore_onthefly=False,
     dashboard=False,
     minimap2_index=None,
-    num_nodes=None,
 )
 
 # option -> the part of the port that will carry it
@@ -113,7 +116,8 @@ LATER_SLICES = {
     'albacore_onthefly': 'the albacore basecalling slice',
     'dashboard': 'the alignment slice',
     'minimap2_index': 'the alignment slice',
-    'num_nodes': 'the multi-GPU slice',
+    # the trainers' --data-parallel; not a key of the session's config
+    'data_parallel': 'the data-parallel training slice',
 }
 
 
@@ -145,8 +149,8 @@ def build_config(inputdir, outputdir, preset='', **options):
             raise KeyError('Unknown config option: {}'.format(key))
         config[key] = value
     for key, where in LATER_SLICES.items():
-        value = config[key]
-        if value and not (key == 'num_nodes' and value == 1):
+        value = config.get(key)
+        if value:
             raise NotImplementedError(
                 '{}={!r} is not ported yet; it waits for {}'.format(
                     key, value, where))

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for Hopper and their wrappers.
 
-Each wrapper checks its inputs, launches its kernel on the current CUDA
-stream for CUDA tensors, and runs the plain PyTorch version from ``ops/``
-for CPU tensors; any other device raises. ``launches`` counts kernel
-launches per wrapper, so a run can show that it went through the kernels.
+Each wrapper checks its inputs, launches its kernel for CUDA tensors on
+the card that holds them (on that card's current stream), and runs the
+plain PyTorch version from ``ops/`` for CPU tensors; any other device
+raises. ``launches`` counts kernel launches per wrapper, so a run can show
+that it went through the kernels.
 """
 
 launches = {

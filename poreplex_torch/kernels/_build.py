@@ -5,7 +5,10 @@ for ``sm_90a`` into ``build/poreplex_torch_kernels/`` beside the package,
 named by a hash of its source and flags so an edited source is rebuilt and
 an unchanged one is reused. No PyTorch headers are included, which keeps a
 build to seconds. Every C entry point returns ``cudaGetLastError()`` after
-its launch; ``check`` turns a non-zero code into an exception.
+its launch; ``check`` turns a non-zero code into an exception. A C entry
+configures and launches its kernel on the current CUDA device, so every
+wrapper makes its tensors' card current around the call
+(``device_guard``).
 """
 
 import ctypes
@@ -109,6 +112,14 @@ def ptr(tensor):
     drop the tensor before the kernel has run: PyTorch's caching allocator
     reuses the memory only for work queued later on the same stream."""
     return ctypes.c_void_p(tensor.data_ptr())
+
+
+def device_guard(tensor):
+    """Makes ``tensor``'s card the current CUDA device for the block: the
+    C entry's cudaFuncSetAttribute, its launch on that card's stream and
+    its cudaGetLastError all need the card that holds the tensors."""
+    import torch
+    return torch.cuda.device(tensor.device)
 
 
 def stream(device):

@@ -59,10 +59,12 @@ def detect_peaks(tstat1, tstat2, lengths, threshold1, threshold2,
     em_l = torch.empty_like(em_s)
     _build.require_cuda('detect_peaks', t1, t2, lens, em_s, em_l)
     p = _build.ptr
-    code = _lib().pp_detect_peaks(
-        p(t1), p(t2), p(lens), p(em_s), p(em_l), batch, seqlen,
-        float(threshold1), float(threshold2), int(window_length1),
-        int(window_length2), float(peak_height), _build.stream(t1.device))
+    with _build.device_guard(t1):
+        code = _lib().pp_detect_peaks(
+            p(t1), p(t2), p(lens), p(em_s), p(em_l), batch, seqlen,
+            float(threshold1), float(threshold2), int(window_length1),
+            int(window_length2), float(peak_height),
+            _build.stream(t1.device))
     _build.check(code, 'detect_peaks')
     launches['detect_peaks'] += 1
     return em_s, em_l

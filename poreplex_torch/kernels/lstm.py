@@ -88,10 +88,11 @@ def lstm2_stacked(params1, params2, xs):
     batch, seqlen, _ = xs.shape
     out = torch.empty((batch, h2), dtype=torch.float32, device=xs.device)
     _build.require_cuda('lstm2_stacked', xs, k1, b1, r1, k2, b2, r2, out)
-    code = _lib().pp_lstm2_stacked(
-        _build.ptr(xs), _build.ptr(k1), _build.ptr(b1), _build.ptr(r1),
-        _build.ptr(k2), _build.ptr(b2), _build.ptr(r2), _build.ptr(out),
-        batch, seqlen, h1, _build.stream(xs.device))
+    with _build.device_guard(xs):
+        code = _lib().pp_lstm2_stacked(
+            _build.ptr(xs), _build.ptr(k1), _build.ptr(b1), _build.ptr(r1),
+            _build.ptr(k2), _build.ptr(b2), _build.ptr(r2), _build.ptr(out),
+            batch, seqlen, h1, _build.stream(xs.device))
     _build.check(code, 'lstm2_stacked')
     launches['lstm2_stacked'] += 1
     return out
@@ -119,9 +120,10 @@ def bidirectional_lstm(fwd_params, bwd_params, xs):
                       device=xs.device)
     _build.require_cuda('bidirectional_lstm', xs, kf, bf, rf, kb, bb, rb, out)
     p = _build.ptr
-    code = _lib().pp_lstm_seq(
-        p(xs), p(kf), p(bf), p(rf), p(kb), p(bb), p(rb), p(out), batch,
-        seqlen, hidden, _build.stream(xs.device))
+    with _build.device_guard(xs):
+        code = _lib().pp_lstm_seq(
+            p(xs), p(kf), p(bf), p(rf), p(kb), p(bb), p(rb), p(out), batch,
+            seqlen, hidden, _build.stream(xs.device))
     _build.check(code, 'bidirectional_lstm')
     launches['bidirectional_lstm'] += 1
     return out
@@ -139,9 +141,10 @@ def lstm_last(params, xs):
     out = torch.empty((batch, hidden), dtype=torch.float32, device=xs.device)
     bias, rec = params['bias'], params['recurrent']
     _build.require_cuda('lstm_last', xk, bias, rec, out)
-    code = _lib().pp_lstm_last(_build.ptr(xk), _build.ptr(bias),
-                               _build.ptr(rec), _build.ptr(out), batch,
-                               seqlen, hidden, _build.stream(xs.device))
+    with _build.device_guard(xk):
+        code = _lib().pp_lstm_last(_build.ptr(xk), _build.ptr(bias),
+                                   _build.ptr(rec), _build.ptr(out), batch,
+                                   seqlen, hidden, _build.stream(xs.device))
     _build.check(code, 'lstm_last')
     launches['lstm_last'] += 1
     return out

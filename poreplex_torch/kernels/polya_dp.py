@@ -62,10 +62,11 @@ def dp(is_polya_a, is_polya_b, length, n_events, spike_weight,
                       device=is_polya_a.device)
     _build.require_cuda('polya_dp', isp_a, isp_b, lengths, n, out)
     p = _build.ptr
-    code = _lib().pp_polya_dp(
-        p(isp_a), p(isp_b), p(lengths), p(n), p(out), rows, kmax,
-        float(spike_weight), int(spike_tolerance),
-        _build.stream(is_polya_a.device))
+    with _build.device_guard(out):
+        code = _lib().pp_polya_dp(
+            p(isp_a), p(isp_b), p(lengths), p(n), p(out), rows, kmax,
+            float(spike_weight), int(spike_tolerance),
+            _build.stream(out.device))
     _build.check(code, 'polya_dp')
     launches['polya_dp'] += 1
     return out[0], out[1], out[2]

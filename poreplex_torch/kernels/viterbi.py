@@ -84,10 +84,11 @@ def viterbi_extents(x, lengths, log_start, log_trans, mus, sigmas, logws):
     _build.require_cuda('viterbi_extents', xc, lens, log_start, log_trans,
                         mus, sigmas, const, bp, first, last, logp)
     p = _build.ptr
-    code = _lib().pp_viterbi_extents(
-        p(xc), p(lens), p(log_start), p(log_trans), p(mus), p(sigmas),
-        p(const), p(bp), p(first), p(last), p(logp), batch, seqlen, nstates,
-        ncomp, _build.stream(x.device))
+    with _build.device_guard(xc):
+        code = _lib().pp_viterbi_extents(
+            p(xc), p(lens), p(log_start), p(log_trans), p(mus), p(sigmas),
+            p(const), p(bp), p(first), p(last), p(logp), batch, seqlen,
+            nstates, ncomp, _build.stream(x.device))
     _build.check(code, 'viterbi_extents')
     launches['viterbi_extents'] += 1
     return first, last, last >= 0, logp
@@ -109,10 +110,11 @@ def viterbi(x, lengths, log_start, log_trans, mus, sigmas, logws):
     _build.require_cuda('viterbi', xc, lens, log_start, log_trans, mus,
                         sigmas, const, bp, path, logp)
     p = _build.ptr
-    code = _lib().pp_viterbi_path(
-        p(xc), p(lens), p(log_start), p(log_trans), p(mus), p(sigmas),
-        p(const), p(bp), p(path), p(logp), batch, seqlen, nstates, ncomp,
-        _build.stream(x.device))
+    with _build.device_guard(xc):
+        code = _lib().pp_viterbi_path(
+            p(xc), p(lens), p(log_start), p(log_trans), p(mus), p(sigmas),
+            p(const), p(bp), p(path), p(logp), batch, seqlen, nstates,
+            ncomp, _build.stream(x.device))
     _build.check(code, 'viterbi')
     launches['viterbi'] += 1
     return path, logp

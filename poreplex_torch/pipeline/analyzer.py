@@ -12,7 +12,9 @@ and status lattice, run as batch phases:
 A read can stop at any phase with a status from the taxonomy; later
 phases skip stopped reads. A kernel that fails to build or launch stops
 the batch: no per-read catch turns it into a missing poly(A) tail or an
-unfiltered read.
+unfiltered read. With a mesh of several devices (parallel/mesh.py), stage
+1, the poly(A) rounds and the unsplit windows spread each batch's reads
+over them; the per-read results are those of one device.
 """
 
 import csv
@@ -21,6 +23,8 @@ import traceback
 
 import numpy as np
 
+from ..parallel.mesh import select_devices
+from ..parallel.sharding import ShardedEngine
 from ..utils import pack_unhandled_exception, trace
 from .engine import DeviceEngine
 from .polya import PolyaAnalyzer
@@ -58,15 +62,20 @@ def read_kmer_size(path):
 class BatchAnalyzer:
     """Models, engine and per-batch phases; reused across batches. Reads
     come from ``source`` (pipeline/source.py), the input directory's FAST5
-    files unless another is given."""
+    files unless another is given. The batches run on ``devices``, the
+    config's mesh (parallel/mesh.select_devices) unless a list is given;
+    with more than one, ``stage1`` is a ShardedEngine over them."""
 
-    def __init__(self, config, source=None):
+    def __init__(self, config, source=None, devices=None):
         self.config = config
         self.inputdir = config['inputdir']
         self.source = source if source is not None else \
             DirectorySource(self.inputdir)
         self.stride = config['signal_processing']['rough_signal_stride']
-        self.engine = DeviceEngine(config)
+        self.devices = list(devices or select_devices(config))
+        self.engine = DeviceEngine(config, device=self.devices[0])
+        self.stage1 = (ShardedEngine(self.engine, self.devices)
+                       if len(self.devices) > 1 else self.engine)
         if self.engine.scaler.input_stride != self.stride:
             # the scaler head is rebuilt on the device from the pooled
             # body, so both must share one pooling
@@ -75,10 +84,11 @@ class BatchAnalyzer:
                 '({})'.format(self.engine.scaler.input_stride, self.stride))
         self.kmersize = read_kmer_size(config['kmer_model'])
         self.polya_analyzer = (
-            PolyaAnalyzer(config['polya_dwell'], device=self.engine.device)
+            PolyaAnalyzer(config['polya_dwell'], devices=self.devices)
             if config['measure_polya'] else None)
         self.unsplit_detector = (
-            UnsplitReadDetector(config, self.engine.unsplitmodel)
+            UnsplitReadDetector(config, self.engine.unsplitmodel,
+                                devices=self.devices)
             if config['filter_unsplit_reads'] else None)
         self._event_columns = (None if config['dump_basecalls']
                                else EVENT_COLUMNS)
@@ -293,7 +303,7 @@ class BatchAnalyzer:
 
     def run_stage1(self, records):
         """Stage 1 of every record: all sub-batches are enqueued on the
-        device before the first result is read back."""
+        devices before the first result is read back."""
         frames = self.engine.seg_frames
         reads = [(rec.pooled, min(len(rec.pooled), frames), rec.head_len)
                  for rec in records]
@@ -301,13 +311,13 @@ class BatchAnalyzer:
         counts = []
         while reads:
             with trace('B:pack'):
-                wire, n = self.engine.pack_stage1_flat(reads)
+                wire, n = self.stage1.pack_stage1_flat(reads)
             with trace('B:dispatch'):
-                handles.append(self.engine.dispatch_stage1_flat(wire))
+                handles.append(self.stage1.dispatch_stage1_flat(wire))
             counts.append(n)
             reads = reads[n:]
         with trace('B:collect'):
-            chunks = [self.engine.collect_stage1_flat(h) for h in handles]
+            chunks = [self.stage1.collect_stage1_flat(h) for h in handles]
         return {k: np.concatenate([c[k][:cnt] for c, cnt in
                                    zip(chunks, counts)])
                 for k in chunks[0]}

@@ -8,8 +8,13 @@ concatenated end to end and quantized per read (u16, or u8 with
 ``wire_precision='fast'``), and an aux table [B, 6] f32 of (offset,
 pooled_len, head_len, valid, lo, step). The padded [B, T] layout and the
 scaler head are rebuilt on the device; the result comes back as one packed
-[B, C] f32 array whose columns ``_unpack_stage1`` reads.
+[B, C] f32 array whose columns ``_unpack_stage1`` reads. The padded wire
+(``pack_stage1``: [B, wire_frames + 3] u16 rows and a [B, 2] (lo, step)
+table) is the one poreplex-tpu's sharded engine splits by rows; the
+analyzer sends the token-packed one.
 """
+
+import copy
 
 import numpy as np
 import torch
@@ -76,6 +81,20 @@ class DeviceEngine:
                 'integer-exact offset range (2**24); lower '
                 'device_batch_size or segmentation_scan_limit'.format(
                     self.flat_size))
+
+    def replica(self, device):
+        """This engine on ``device``: the same configuration and shapes,
+        the models' weights copied from this engine's device."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        twin = copy.copy(self)
+        twin.device = device
+        for name in ('scaler', 'segmodel', 'unsplitmodel', 'demux'):
+            model = getattr(self, name)
+            if model is not None:
+                setattr(twin, name, copy.deepcopy(model).to(device))
+        return twin
 
     # ------------------------------------------------------------------
     def _derive_heads(self, pooled, head_len):
@@ -179,6 +198,73 @@ class DeviceEngine:
         flat[:total] = q.astype(flat.dtype)
         return total
 
+    def pack_stage1(self, pooled, pooled_len, head_len=None,
+                    head_valid=None):
+        """The padded wire of one batch: (packed [B, wire_frames + 3] u16,
+        rows of quantized pooled frames then head_len, head_valid,
+        pooled_len; qparams [B, 2] f32 per-read (lo, step)).
+
+        pooled: [B, <= wire_frames] f32 pooled pA; pooled_len: [B] valid
+        segmentation frames; head_len: [B] scaler-head frames (default
+        min(pooled_length, pooled_len)); head_valid: [B] bool."""
+        pooled = np.asarray(pooled, np.float32)
+        n, w = pooled.shape
+        pooled_len = np.asarray(pooled_len, np.uint16)
+        if head_len is None:
+            head_len = np.minimum(self.scaler.pooled_length,
+                                  pooled_len).astype(np.uint16)
+        if head_valid is None:
+            head_valid = np.ones(n, bool)
+        stored = np.minimum(np.maximum(pooled_len, head_len), w)
+        packed = np.zeros((n, self.wire_frames + 3), np.uint16)
+        qparams = np.zeros((n, 2), np.float32)
+        qparams[:, 1] = 1.0
+        chunks = [pooled[i, :stored[i]] for i in range(n)]
+        flat = np.zeros(int(stored.sum()), np.uint16)
+        self._quantize_stream(chunks, flat, qparams, 65535)
+        off = 0
+        for i in range(n):
+            packed[i, :stored[i]] = flat[off:off + stored[i]]
+            off += int(stored[i])
+        packed[:, self.wire_frames] = np.asarray(head_len, np.uint16)
+        packed[:, self.wire_frames + 1] = np.asarray(head_valid, np.uint16)
+        packed[:, self.wire_frames + 2] = pooled_len
+        return packed, qparams
+
+    def _stage1_packed(self, packed, qparams):
+        """packed: the padded wire's rows (u16 as int16 bits) [B, w + 3];
+        qparams [B, 2] f32."""
+        w = self.wire_frames
+        packed = packed.to(torch.int32) & 0xFFFF
+        head_len = packed[:, w]
+        head_valid = packed[:, w + 1] > 0
+        pooled_len = packed[:, w + 2]
+        pooled = qparams[:, 0:1] + packed[:, :w].to(torch.float32) * \
+            qparams[:, 1:2]
+        stored = torch.maximum(pooled_len, head_len)[:, None]
+        j = torch.arange(w, device=packed.device)[None, :]
+        pooled = torch.where(j < stored, pooled, 0.0)
+        out = self._stage1(pooled, pooled_len, head_len, head_valid)
+        return self._pack_outputs(out)
+
+    @torch.inference_mode()
+    def dispatch_stage1(self, packed):
+        """Copies a pack_stage1 batch to the device and enqueues stage 1;
+        returns the device result for collect_stage1."""
+        arr, qparams = packed
+        arr_d = torch.from_numpy(arr.view(np.int16)).to(self.device)
+        qp_d = torch.from_numpy(qparams).to(self.device)
+        return self._stage1_packed(arr_d, qp_d)
+
+    def collect_stage1(self, handle):
+        return self._unpack_stage1(handle.cpu().numpy())
+
+    def run_stage1(self, pooled, pooled_len, head_len=None, head_valid=None):
+        """numpy in, numpy out through the padded wire."""
+        packed = self.pack_stage1(pooled, pooled_len, head_len, head_valid)
+        return self.collect_stage1(self.dispatch_stage1(packed))
+
+    # ------------------------------------------------------------------
     def pack_stage1_flat(self, reads):
         """reads: list of (pooled_f32_1d, pooled_len, head_len). Packs up to
         batch_rows reads, as many as fit the flat buffer; returns (wire,

@@ -7,9 +7,14 @@ Each round packs every active window's raw samples into one u16 stream
 with a [R, 7] window table per window bucket, launches one fused
 ``polya_round`` per bucket (event detection, tail marking, interval DP,
 stdv QC, spike bookkeeping and the anchor recalibration, on the analyzer's
-device), and replays the reference's extend / recalibrate / accept /
+devices), and replays the reference's extend / recalibrate / accept /
 reject decisions on the returned scalars. Windows that extend or whose
 event table was truncated form the next round, until none are left.
+
+Over several devices a launch's rows are cut into contiguous blocks, one a
+device, each device with its own copy of the launch's window stream; every
+launch of a round is enqueued on every device before the first result is
+read back.
 """
 
 import numpy as np
@@ -18,6 +23,7 @@ import torch
 from ..config import resolve_device
 from ..ops import event_detection as ed_ops
 from ..ops import polya_round as round_ops
+from ..parallel.sharding import shard_batch_arrays
 from ..utils import trace
 from .engine import DeviceEngine
 
@@ -39,8 +45,9 @@ _MAX_SPIKES = 128
 # windows at about 699k samples, so longer right-extensions truncate here
 _PACK_SAFE_LEN = 5 * 131072
 
-# windows per launch: rows x bucket stays within 2**21 samples, which
-# bounds the round's device memory (the median filter holds 7 copies)
+# windows per launch and device: rows x bucket stays within 2**21 samples,
+# which bounds the round's device memory (the median filter holds 7
+# copies)
 _LAUNCH_SAMPLES = 1 << 21
 
 
@@ -103,10 +110,12 @@ class PolyaAnalyzer:
         'maximum_openend_extension', 'median_pre_filter',
     ]
 
-    def __init__(self, config, device='cuda'):
+    def __init__(self, config, device='cuda', devices=None):
         for name in self.CONFIG_SLOTS:
             setattr(self, name, config[name])
-        self.device = resolve_device(device)
+        # the rounds' devices; the first also runs the spike fallback
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         self.max_peaks = 1023
 
         mean_loc, mean_scale = config['polya_mean_dist']
@@ -183,27 +192,39 @@ class PolyaAnalyzer:
         task.signal, qa, qb = slicer(insp_begin, task.insp_end)
         task.qaffine = (qa, qb)
 
-    def _upload(self, chunks):
-        """One int32 device stream of the concatenated u16 windows; a
-        trailing zero keeps it non-empty when every window is."""
+    def _upload(self, chunks, device):
+        """One int32 stream on ``device`` of the concatenated u16 windows;
+        a trailing zero keeps it non-empty when every window is."""
         flat = np.concatenate(chunks + [np.zeros(1, np.uint16)]).view(
             np.int16)
-        stream = torch.from_numpy(flat).to(self.device)
+        stream = torch.from_numpy(flat).to(device)
         return stream.to(torch.int32) & 0xFFFF
 
     def _run_round(self, tasks):
-        """Launch one fused round per bucket and chunk of windows, and
-        attach each task's decoded RoundRow."""
+        """Launch one fused round per bucket and chunk of windows on every
+        device, then read the results back and attach each task's decoded
+        RoundRow."""
         by_bucket = {}
         for t in tasks:
             blen = max(_bucket_len(len(t.signal)), t.min_bucket)
             by_bucket.setdefault(blen, []).append(t)
+        launched = []
         for blen, group in sorted(by_bucket.items()):
-            rows = max(1, _LAUNCH_SAMPLES // blen)
+            rows = max(1, _LAUNCH_SAMPLES // blen) * len(self.devices)
             for lo in range(0, len(group), rows):
-                self._launch(group[lo:lo + rows], blen)
+                launched += self._launch(group[lo:lo + rows], blen)
+        with trace('C:polya/collect'):
+            for chunk, blen, heads, spikes in launched:
+                heads, spikes = heads.cpu().numpy(), spikes.cpu().numpy()
+                for t, row in zip(chunk, round_ops.unpack_rows(
+                        heads, spikes, _MAX_SPIKES)):
+                    row.blen = blen
+                    t.row = row
 
     def _launch(self, chunk, blen):
+        """Enqueues the round of ``chunk``'s windows, its rows cut into one
+        block a device; returns [(the block's tasks, blen, heads, spikes)]
+        with the results still on the devices."""
         meta = np.zeros((len(chunk), round_ops.META_COLS), np.float32)
         wires, offset = [], 0
         for i, t in enumerate(chunk):
@@ -213,16 +234,18 @@ class PolyaAnalyzer:
                        *(t.polya_range or self.polya_mean_cutoff), qlo, qstep)
             wires.append(q)
             offset += len(q)
+        launched, streams = [], {}
         with trace('C:polya/launch'):
-            heads, spikes = round_ops.polya_round(
-                self._upload(wires), torch.from_numpy(meta).to(self.device),
-                blen=blen, max_peaks=_BUCKET_PEAKS.get(blen, self.max_peaks),
-                max_spikes=_MAX_SPIKES, **self._round)
-            heads, spikes = heads.cpu().numpy(), spikes.cpu().numpy()
-        for t, row in zip(chunk, round_ops.unpack_rows(heads, spikes,
-                                                       _MAX_SPIKES)):
-            row.blen = blen
-            t.row = row
+            for device, lo, hi, (meta_d,) in shard_batch_arrays(
+                    self.devices, meta):
+                if device not in streams:
+                    streams[device] = self._upload(wires, device)
+                heads, spikes = round_ops.polya_round(
+                    streams[device], meta_d, blen=blen,
+                    max_peaks=_BUCKET_PEAKS.get(blen, self.max_peaks),
+                    max_spikes=_MAX_SPIKES, **self._round)
+                launched.append((chunk[lo:hi], blen, heads, spikes))
+        return launched
 
     # ------------------------------------------------------------------
     def _replay(self, t, stride):
@@ -317,7 +340,8 @@ class PolyaAnalyzer:
                             dtype=torch.float32, device=self.device)
         with torch.inference_mode():
             sig, lengths = round_ops.window_signal(
-                self._upload([q]), meta, blen, int(self.median_pre_filter))
+                self._upload([q], self.device), meta, blen,
+                int(self.median_pre_filter))
             out = ed_ops.detect_events(sig, lengths, max_peaks=self.max_peaks,
                                        **self._detect)
         mean = out['mean'][0].cpu().numpy()

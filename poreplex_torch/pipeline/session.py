@@ -10,7 +10,10 @@ order too. Every read that finishes ``okay`` is appended to
 ``OUTDIR/.processed-reads``; with ``resume`` the reads listed there are
 skipped, and in live mode a read found again is not queued twice. The
 reads come from the input directory's FAST5 files unless the caller hands
-``run`` another source (pipeline/source.py).
+``run`` another source (pipeline/source.py). In a process group of several
+ranks (parallel/distributed.py, joined by the caller before the session
+starts) a session queues only the entries its rank owns, and the final
+counts are summed over the ranks at the end; rank 0 prints them.
 """
 
 import asyncio
@@ -26,6 +29,7 @@ from ..io.writers import (
     FASTQWriter, FAST5Writer, SequencingSummaryWriter,
     NanopolishReadDBWriter, FinalSummaryTracker, DumpWriter,
     create_adapter_dumps_inventory, create_events_inventory)
+from ..parallel import distributed
 from ..utils import errprint, GLOBAL_TIMER
 from .analyzer import BatchAnalyzer
 from .source import DirectorySource
@@ -56,6 +60,10 @@ class ProcessingSession:
 
         self.config = config
         self.logger = logger
+        self.dist_rank, self.dist_size = distributed.process_info()
+        if self.dist_size > 1:
+            logger.info('Distributed session: rank %d of %d',
+                        self.dist_rank, self.dist_size)
         self.source = source if source is not None else \
             DirectorySource(config['inputdir'])
         refused = [key for key in FILE_SINKS if config[key]]
@@ -272,8 +280,11 @@ class ProcessingSession:
 
     # ------------------------------------------------------------------
     def queue_processing(self, readpath):
-        """Admit one (filename, read_id) entry into the pending batch; a
-        full pending batch is submitted at once."""
+        """Admit one (filename, read_id) entry into the pending batch, if
+        this rank owns it; a full pending batch is submitted at once."""
+        if not distributed.owns_entry(readpath, self.dist_rank,
+                                      self.dist_size):
+            return
         self.reads_found += 1
         self.reads_queued += 1
         self.jobstack.append(readpath)
@@ -480,7 +491,8 @@ class ProcessingSession:
     def run(cls, config, logger, source=None):
         """Process every read of ``source`` (the input directory's FAST5
         files by default). Returns the final summary's ``print_results``
-        when every read found was processed, else None."""
+        when every read found was processed, else None; with several
+        ranks, rank 0 returns the merged summary's and the others None."""
         with cls(config, logger, source) as sess:
             sess.show_message('==> Processing FAST5 files')
             loop = sess.loop
@@ -529,6 +541,18 @@ class ProcessingSession:
             if sess.scan_finished and \
                     sess.reads_found == sess.reads_processed:
                 sess.finalize_results()
+                if sess.dist_size > 1:
+                    # a collective: every rank comes here once it has
+                    # processed its reads
+                    logger.info('Merging final counts across %d ranks',
+                                sess.dist_size)
+                    sess.finalsummary_tracker.counts = defaultdict(
+                        int, distributed.merge_final_counts(
+                            sess.finalsummary_tracker))
+                    if sess.dist_rank != 0:
+                        sess.show_message('==> Finished (host {}).'.format(
+                            sess.dist_rank))
+                        return None
                 sess.show_message('==> Finished.')
                 return sess.finalsummary_tracker.print_results
             if sess.scan_finished:

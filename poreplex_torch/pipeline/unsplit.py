@@ -11,12 +11,17 @@ runs as tensor operations over the decoded paths, and only a [R, K, 3]
 table of (leader_start, first, last) trios plus run counts comes back; a
 window with more than K adapter runs takes the host walk over its path.
 The duration cutoffs and the high-quality base counts stay on the host.
+Over several devices each launch's rows are cut into one contiguous block
+a device, and every launch is enqueued before the first read-back.
 """
+
+import copy
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import block_rows
 from ..utils import union_intervals
 
 
@@ -25,23 +30,30 @@ class UnsplitReadDetector:
     # event-count buckets of the padded window shape; larger counts round
     # up to the next power of two
     EVENT_BUCKETS = (128, 1024)
-    # windows per launch
+    # windows per launch and device
     ROWS = 1024
     # adapter runs reported per window; windows with more walk their path
     # on the host
     MAX_RUNS = 16
 
-    def __init__(self, config, unsplit_model):
+    def __init__(self, config, unsplit_model, devices=None):
+        """``devices``: the windows' devices (default the model's), each
+        with its own copy of the HMM."""
         self.config = config['unsplit_read_detection']
-        self.model = unsplit_model
-        self.device = unsplit_model.mus.device
+        self.devices = list(devices or [unsplit_model.mus.device])
         index = unsplit_model.state_index
         self.leaderish = {index[n] for n in ('adapter', 'leader-high',
                                              'leader-low') if n in index}
         self.adapter_idx = index['adapter']
         mask = torch.zeros(unsplit_model.nstates, dtype=torch.bool)
         mask[sorted(self.leaderish)] = True
-        self._leader_mask = mask.to(self.device)
+        # device -> (HMM, leader mask) on it
+        self._on = {}
+        for device in self.devices:
+            if device not in self._on:
+                model = (unsplit_model if device == unsplit_model.mus.device
+                         else copy.deepcopy(unsplit_model).to(device))
+                self._on[device] = model, mask.to(device)
 
     # ------------------------------------------------------------------
     def collect_windows(self, read, segments, elspan):
@@ -85,25 +97,41 @@ class UnsplitReadDetector:
         by_bucket = {}
         for i, (_, lo, hi) in enumerate(jobs):
             by_bucket.setdefault(self._event_bucket(hi - lo), []).append(i)
-        for emax, idx in sorted(by_bucket.items()):
-            for at in range(0, len(idx), self.ROWS):
-                chunk = idx[at:at + self.ROWS]
-                x, lens = self._pack(jobs, chunk, emax)
-                with torch.inference_mode():
-                    path, _ = self.model.path(x, lens)
-                    trios, count = self._runs_on_device(path, lens)
-                trios, count = trios.cpu().numpy(), count.cpu().numpy()
-                for r, i in enumerate(chunk):
-                    n = int(count[r])
-                    if n > self.MAX_RUNS:
-                        runs[i] = self._runs_from_path(
-                            path[r, :int(lens[r])].cpu().numpy())
-                    else:
-                        runs[i] = trios[r, :n].astype(np.int64)
+        rows = self.ROWS * len(self.devices)
+        launched = []
+        with torch.inference_mode():
+            for emax, idx in sorted(by_bucket.items()):
+                for at in range(0, len(idx), rows):
+                    chunk = idx[at:at + rows]
+                    for device, (lo, hi) in zip(
+                            self.devices, block_rows(len(chunk),
+                                                     len(self.devices))):
+                        if hi > lo:
+                            launched.append(self._decode(
+                                jobs, chunk[lo:hi], emax, device))
+        for block, path, lens, trios, count in launched:
+            trios, count = trios.cpu().numpy(), count.cpu().numpy()
+            for r, i in enumerate(block):
+                n = int(count[r])
+                if n > self.MAX_RUNS:
+                    runs[i] = self._runs_from_path(
+                        path[r, :int(lens[r])].cpu().numpy())
+                else:
+                    runs[i] = trios[r, :n].astype(np.int64)
         return runs
 
-    def _pack(self, jobs, chunk, emax):
-        """Padded windows [rows, emax] on the device, gathered from one
+    def _decode(self, jobs, block, emax, device):
+        """Enqueues the Viterbi paths and the run walk of the windows
+        ``block`` on ``device``: (block, path, lens, trios, count), all
+        still on the device."""
+        model, mask = self._on[device]
+        x, lens = self._pack(jobs, block, emax, device)
+        path, _ = model.path(x, lens)
+        trios, count = self._runs_on_device(path, lens, mask)
+        return block, path, lens, trios, count
+
+    def _pack(self, jobs, chunk, emax, device):
+        """Padded windows [rows, emax] on ``device``, gathered from one
         stream holding each read's scaled event means once."""
         offsets, parts, used = {}, [], 0
         meta = np.zeros((len(chunk), 2), np.int64)
@@ -115,14 +143,14 @@ class UnsplitReadDetector:
                 parts.append(vals)
                 used += len(vals)
             meta[r] = (offsets[id(read)] + lo, hi - lo)
-        stream = torch.from_numpy(np.concatenate(parts)).to(self.device)
-        meta = torch.from_numpy(meta).to(self.device)
-        j = torch.arange(emax, device=self.device)[None, :]
+        stream = torch.from_numpy(np.concatenate(parts)).to(device)
+        meta = torch.from_numpy(meta).to(device)
+        j = torch.arange(emax, device=device)[None, :]
         idx = (meta[:, :1] + j).clamp(0, stream.shape[0] - 1)
         lens = meta[:, 1]
         return torch.where(j < lens[:, None], stream[idx], 0.0), lens
 
-    def _runs_on_device(self, path, lens):
+    def _runs_on_device(self, path, lens, leader_mask):
         """The reference's run walk (poreplex/signal_analyzer.py:388-404)
         over decoded paths [R, T]: an adapter run emits (leader_start,
         first, last), leader_start opening the chain of leaderish runs
@@ -133,7 +161,7 @@ class UnsplitReadDetector:
         j = torch.arange(seqlen, device=path.device)[None, :]
         valid = j < lens[:, None]
         is_ad = (path == self.adapter_idx) & valid
-        leaderish = self._leader_mask[path] & valid
+        leaderish = leader_mask[path] & valid
         run_start = is_ad & ~F.pad(is_ad[:, :-1], (1, 0))
         run_end = is_ad & ~F.pad(is_ad[:, 1:], (0, 1))
         # last chain-breaking frame strictly before each frame

@@ -169,7 +169,7 @@ def main(argv=None):
     if args.data_parallel:
         raise NotImplementedError(
             'data-parallel training is not ported yet; it waits for '
-            + LATER_SLICES['num_nodes'])
+            + LATER_SLICES['data_parallel'])
 
     data = None
     if args.dumps:

@@ -156,7 +156,7 @@ def main(argv=None):
     if args.data_parallel:
         raise NotImplementedError(
             'data-parallel training is not ported yet; it waits for '
-            + LATER_SLICES['num_nodes'])
+            + LATER_SLICES['data_parallel'])
     train(args.output, steps=args.steps, batch_size=args.batch_size,
           seed=args.seed, device='cpu' if args.cpu else 'cuda')
 

@@ -317,16 +317,16 @@ CARRIED = {
     '--tmpdir': ['--tmpdir', '{tmp}'],
     '--batch-size': ['--batch-size', '64'],
     '--resume': ['--resume'],
+    # one process: a rank count of 1 joins no process group
+    '--mesh-shape': ['--mesh-shape', '2'],
+    '--num-nodes': ['--num-nodes', '1'],
+    '--node-rank': ['--node-rank', '0'],
+    '--coordinator': ['--coordinator', '127.0.0.1:1'],
 }
 # options of later slices: the port stops with an error naming the slice
 REFUSED = {
     '--basecall': (['--basecall'], 'the albacore basecalling slice'),
     '--align': (['--align', 'ref.mmi'], 'the alignment slice'),
-    '--mesh-shape': (['--mesh-shape', '2'], 'the multi-GPU slice'),
-    '--num-nodes': (['--num-nodes', '2'], 'the multi-GPU slice'),
-    '--node-rank': (['--node-rank', '1'], 'the multi-GPU slice'),
-    '--coordinator': (['--coordinator', 'localhost:1'],
-                      'the multi-GPU slice'),
 }
 # TPU knobs the port does not add: its parser refuses them
 TPU_KNOBS = {'--pallas': ['--pallas', 'never'], '--prewarm': ['--prewarm']}
@@ -342,7 +342,7 @@ CONFIG_KEYS = (
     'trim_adapter', 'minimum_sequence_length', 'minimap2_index',
     'device_batch_size', 'wire_precision', 'resume', 'parallel',
     'nobasecall_stop_trigger', 'label_names', 'barcode_names',
-    'output_layout')
+    'output_layout', 'mesh_shape', 'num_nodes', 'node_rank', 'coordinator')
 PRESET_KEYS = ('segmentation', 'polya_dwell', 'unsplit_read_detection')
 
 
@@ -427,6 +427,19 @@ def test_later_slice_option_stops(option, tmp_path, capsys):
     err = capsys.readouterr().err
     assert option in err and slice_name in err
     assert not (tmp_path / 'out').exists()
+
+
+@pytest.mark.parametrize('trainer', ['train_demux', 'train_scaler'])
+def test_trainer_data_parallel_stops(trainer, tmp_path):
+    """The trainers' --data-parallel waits for its own slice: the
+    multi-GPU slice carries the session, not training."""
+    import importlib
+    module = importlib.import_module('poreplex_torch.training.' + trainer)
+    path = tmp_path / 'model.npz'
+    with pytest.raises(NotImplementedError,
+                       match='data-parallel training slice'):
+        module.main(['-o', str(path), '--data-parallel', '--cpu'])
+    assert not path.exists()
 
 
 @pytest.mark.parametrize('option', sorted(TPU_KNOBS))

@@ -52,7 +52,9 @@ def test_importing_every_module_loads_no_jax():
     modules = set(port_modules())
     assert {'poreplex_torch.training.train_demux',
             'poreplex_torch.commandline', 'poreplex_torch.__main__',
-            'poreplex_torch.pipeline.source'} <= modules
+            'poreplex_torch.pipeline.source', 'poreplex_torch.parallel',
+            'poreplex_torch.parallel.mesh', 'poreplex_torch.parallel.sharding',
+            'poreplex_torch.parallel.distributed'} <= modules
     assert loaded_after_importing_the_port(FORBIDDEN) == ''
 
 
@@ -85,6 +87,7 @@ def test_no_exception_handling_around_kernel_launches():
     paths = (sorted((PACKAGE / 'kernels').glob('*.py')) +
              sorted((PACKAGE / 'models').glob('*.py')) +
              sorted((PACKAGE / 'ops').glob('*.py')) +
+             sorted((PACKAGE / 'parallel').glob('*.py')) +
              [PACKAGE / 'pipeline' / 'engine.py',
               PACKAGE / 'pipeline' / 'polya.py'])
     for path in paths:
@@ -149,7 +152,7 @@ def test_wrappers_refuse_other_devices():
 
 @pytest.mark.parametrize('option,value', [
     ('dashboard', True), ('albacore_onthefly', True),
-    ('minimap2_index', 'ref.mmi'), ('num_nodes', 2)])
+    ('minimap2_index', 'ref.mmi')])
 def test_later_slice_options_raise(tmp_path, option, value):
     from poreplex_torch.config import build_config
     with pytest.raises(NotImplementedError, match='not ported yet'):
@@ -185,9 +188,23 @@ def test_polya_and_unsplit_options_build(tmp_path, option):
         build_config(str(tmp_path), str(tmp_path), **{option: True})
 
 
+@pytest.mark.parametrize('option,value', [
+    ('mesh_shape', 2), ('num_nodes', 2), ('node_rank', 1),
+    ('coordinator', '127.0.0.1:29500')])
+def test_parallel_options_build(tmp_path, option, value):
+    """The options of the multi-GPU slice build on the CPU when asked and
+    want CUDA by default."""
+    from poreplex_torch.config import build_config
+    config = build_config(str(tmp_path), str(tmp_path), device='cpu',
+                          **{option: value})
+    assert config[option] == value
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        build_config(str(tmp_path), str(tmp_path), **{option: value})
+
+
 def test_tpu_knobs_are_unknown(tmp_path):
     from poreplex_torch.config import build_config
-    for option in ('pallas', 'mesh_shape', 'prewarm'):
+    for option in ('pallas', 'prewarm'):
         with pytest.raises(KeyError):
             build_config(str(tmp_path), str(tmp_path), device='cpu',
                          **{option: 'auto'})

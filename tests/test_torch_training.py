@@ -626,6 +626,7 @@ def test_trainers_want_cuda_by_default(tmp_path, module):
         module.train(path, steps=1, log=quiet)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         module.main(['-o', path, '--steps', '1'])
-    with pytest.raises(NotImplementedError, match='multi-GPU slice'):
+    with pytest.raises(NotImplementedError,
+                       match='data-parallel training slice'):
         module.main(['-o', path, '--data-parallel', '--cpu'])
     assert not os.path.exists(path)
