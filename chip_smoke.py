@@ -58,7 +58,15 @@
    batches of 64 and 32 (ms a step, kernel launches a step from the
    profiler); their checkpoints in DemuxModel and ScalerModel on the card,
    where kernels 1 to 3 must launch and agree within 5e-5 with the
-   training forward on the held-out windows and heads; then whether
+   training forward on the held-out windows and heads; then data-parallel
+   training on a world of one NCCL rank (parallel/training.launch, as the
+   trainers' --data-parallel runs it): each trainer's fit() at its batch
+   of 64 and 32 for 5 steps, the first held against the same step in this
+   process from the rank's parameters and global batch, every rank's
+   inputs and parameters equal to rank 0's, ms a step (median of 3),
+   launches, NCCL device time and busy share of a profiled step, then the
+   workflows' evaluate (training/workflow.py, scaler_workflow.py) on the
+   ranks' checkpoints, where kernels 1 to 3 must launch; then whether
    libhdf5 can be dlopened (a probe, never a failure);
 7. several cards (on one card, the sharded code on that card): each of the
    seven wrappers on tensors on every visible card with cuda:0 current,
@@ -78,8 +86,15 @@
    to 6 run on cuda:0 alone (mesh_shape 1) whatever the card count;
 8. prints the run's time, a JSON line of the kernels, the card's name and
    power limit, then {"ok": true, ...} last. With --multi-card only step
-   1, step 7 (the mesh over the ranks' 512 reads) and the last two lines
-   run.
+   1, step 7 (the mesh over the ranks' 512 reads), the data-parallel
+   training of step 6 at D = 1, 2 and 4 ranks of one card each (where
+   visible; beyond one rank each trainer at its global batch of 64 or 32
+   and at that batch a card, the latter profiled) with the workflows'
+   evaluate on the checkpoints of the largest D, and the last two lines
+   run. Cut to keep
+   it short: the first, checked, step is the warm-up, and a step is
+   profiled only at the batch a card (launches do not depend on the
+   batch).
 
 Any failure raises and exits non-zero before the last line is printed.
 """
@@ -675,14 +690,12 @@ def run_main_path(config, rng):
             {read.read_id: read for read in reads}, stage1_run, polya_blens)
 
 
-def profile(label, fn, host=True):
-    """fn() under torch.profiler: wall time, the device's busy share (the
-    union of the device's kernel and copy intervals over the wall time)
-    and the device time by kernel name. Returns the wall and busy ms and
-    the kernel launches (device events other than copies and memsets).
-    host=False traces the device alone, which costs a step of some 300,000
-    launches less. The profiler's raw events are read as they are: its
-    Python event tree takes minutes to build at that size."""
+def traced(fn, host=True):
+    """fn() under torch.profiler: (its wall ms, the device's kernel and
+    copy spans as sorted (start us, end us, name)). host=False traces the
+    device alone, which costs a step of some 300,000 launches less. The
+    profiler's raw events are read as they are: its Python event tree
+    takes minutes to build at that size."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     activities = [ProfilerActivity.CUDA] + \
@@ -702,30 +715,49 @@ def profile(label, fn, host=True):
                    if e.device_type() == DeviceType.CUDA and
                    not e.is_user_annotation() and
                    not e.name().startswith('Activity Buffer'))
+    return wall_ms, spans
+
+
+def busy_ms(spans):
+    """The union of the spans' intervals, in ms."""
     busy_us, end = 0.0, float('-inf')
-    by_name, count = {}, {}
-    for start, stop, name in spans:
+    for start, stop, _ in spans:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
+    return busy_us / 1e3
+
+
+def kernel_launches(spans):
+    """Device events other than copies and memsets."""
+    return sum(not name.startswith(('Memcpy', 'Memset'))
+               for _, _, name in spans)
+
+
+def profile(label, fn, host=True):
+    """fn() under torch.profiler (``traced``): wall time, the device's busy
+    share (the union of the device's kernel and copy intervals over the
+    wall time) and the device time by kernel name. Returns the wall and
+    busy ms and the kernel launches."""
+    wall_ms, spans = traced(fn, host)
+    busy = busy_ms(spans)
+    by_name, count = {}, {}
+    for start, stop, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
         count[name] = count.get(name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = sorted((name, us) for name, us in by_name.items()
                   if any(k in name for k in PORT_KERNELS))
     most = sorted(count.items(), key=lambda kv: -kv[1])[:12]
-    busy_ms = busy_us / 1e3
-    launches = sum(n for name, n in count.items()
-                   if not name.startswith(('Memcpy', 'Memset')))
     log('{} profile: wall {:.2f} ms, device busy {:.2f} ms ({:.1%}) in {} '
         'device events; by name: {}; the port\'s kernels: {}; the most '
         'launched: {}'.format(
-            label, wall_ms, busy_ms, busy_ms / wall_ms, len(spans),
+            label, wall_ms, busy, busy / wall_ms, len(spans),
             '; '.join('{} {:.3f} ms'.format(name[:60], us / 1e3)
                       for name, us in top),
             '; '.join('{} {:.3f} ms ({} launches)'.format(
                 name[:60], us / 1e3, count[name]) for name, us in ours),
             '; '.join('{} {}'.format(name[:60], n) for name, n in most)))
-    return wall_ms, busy_ms, launches
+    return wall_ms, busy, kernel_launches(spans)
 
 
 def profile_batch(analyzer, reads):
@@ -1283,6 +1315,259 @@ def libhdf5_line():
         'dlopen of {} succeeded'.format(found) if found else
         'no soname opened', ', '.join(HDF5_SONAMES),
         ctypes.util.find_library('hdf5'))
+
+
+# ----------------------------------------------------------------------
+# data-parallel training: one NCCL rank a card (parallel/training.py)
+
+# each trainer's configuration in a rank: step 0 is held against one
+# card's step (and warms up), the next DP_TIMED are timed, and where the
+# configuration is profiled, one more step runs under the profiler
+DP_TIMED = 3
+TRAINERS = ('train_demux', 'train_scaler')
+
+
+def dp_configs(world):
+    """(trainer, global batch, profiled) at ``world`` ranks: each network
+    at its global batch of TRAIN_BATCH and, beyond one rank, at
+    TRAIN_BATCH a card; launches do not depend on the batch, so only the
+    batch a card is profiled."""
+    configs = []
+    for trainer, name in zip(TRAINERS, ('demux', 'scaler')):
+        batch = TRAIN_BATCH[name]
+        if world > 1:
+            configs.append((trainer, batch, False))
+        configs.append((trainer, batch * world, True))
+    return configs
+
+
+def gathered_max_diff(tensor):
+    """The largest difference of any rank's ``tensor`` from rank 0's."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, tensor.contiguous())
+    return max(float((p.double() - parts[0].double()).abs().max())
+               for p in parts)
+
+
+def dp_rank(replica, device, log, outdir):
+    """One rank of the data-parallel phase: every configuration of
+    dp_configs through the trainer's own fit() with its train_step
+    wrapped, which times and profiles the steps and, after step 0 and the
+    last step, compares every rank's global inputs and parameters with
+    rank 0's. Rank 0 returns every rank's records, its first step's
+    inputs, parameters, loss and gradients, and its checkpoints."""
+    import importlib
+    import torch.distributed as dist
+    records = []
+    for trainer, batch, profiled in dp_configs(replica.world):
+        module = importlib.import_module('poreplex_torch.training.' + trainer)
+        step = module.train_step
+        record = {'trainer': trainer, 'batch': batch, 'ms': [], 'steps': 0}
+        steps = 1 + DP_TIMED + profiled
+
+        def wrapped(net, optimizer, *args):
+            k = record['steps']
+            record['steps'] += 1
+            inputs = args[:-1]
+            if k == 0:
+                record['global'] = len(inputs[0])
+                record['inputs_diff'] = max(gathered_max_diff(t)
+                                            for t in inputs)
+                params = {n: p.detach().cpu().numpy().copy()
+                          for n, p in net.named_parameters()}
+                value = step(net, optimizer, *args)
+                record['loss'] = float(value)
+                if replica.rank == 0:
+                    record['first'] = {
+                        'params': params,
+                        'inputs': [t.cpu().numpy() for t in inputs],
+                        'grads': {n: p.grad.cpu().numpy()
+                                  for n, p in net.named_parameters()}}
+            elif k <= DP_TIMED:
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                value = step(net, optimizer, *args)
+                torch.cuda.synchronize()
+                dist.barrier()
+                record['ms'].append((time.perf_counter() - t0) * 1e3)
+            else:
+                out = []
+                wall_ms, spans = traced(
+                    lambda: out.append(step(net, optimizer, *args)), False)
+                value = out[0]
+                record['trace'] = {
+                    'wall_ms': wall_ms, 'busy_ms': busy_ms(spans),
+                    # an NCCL kernel spins until the last rank joins it
+                    'compute_ms': busy_ms([sp for sp in spans
+                                           if 'nccl' not in sp[2].lower()]),
+                    'launches': kernel_launches(spans),
+                    'nccl_ms': sum(stop - start for start, stop, name in spans
+                                   if 'nccl' in name.lower()) / 1e3,
+                    'nccl_launches': sum('nccl' in name.lower()
+                                         for _, _, name in spans)}
+            if k == steps - 1:
+                record['params_diff'] = gathered_max_diff(torch.cat(
+                    [p.detach().reshape(-1) for p in net.parameters()]))
+            return value
+
+        path = os.path.join(outdir, '{}-{}-{}.npz'.format(
+            trainer, replica.world, batch))
+        size = dict(n_per_class=TRAIN_SIZE['demux']) \
+            if trainer == 'train_demux' else \
+            dict(n_samples=TRAIN_SIZE['scaler'])
+        module.train_step = wrapped
+        record['result'] = module.fit(
+            replica, device, log, output_path=path, steps=steps,
+            batch_size=batch, seed=SEED, learning_rate=1e-3,
+            eval_fraction=0.25 if trainer == 'train_demux' else 0.2,
+            data=None, **size)
+        module.train_step = step
+        record['path'] = path
+        records.append(record)
+    ranks = [None] * replica.world
+    dist.all_gather_object(ranks, [{k: v for k, v in r.items()
+                                    if k != 'first'} for r in records])
+    return {'ranks': ranks, 'first': [r.get('first') for r in records]}
+
+
+def first_step_on_one_card(trainer, first):
+    """The trainer's one-process step on cuda:0 from rank 0's parameters
+    and global inputs: (loss, gradients by parameter name)."""
+    import importlib
+    from poreplex_torch.ops import rnn
+    from poreplex_torch.training import layers
+    rnn.use_full_fp32()
+    module = importlib.import_module('poreplex_torch.training.' + trainer)
+    net_class = module.DemuxNet if trainer == 'train_demux' else \
+        module.ScalerNet
+    net = net_class.from_params({n.replace('.', '/'): v for n, v in
+                                 first['params'].items()}, DEVICE)
+    value = module.train_step(net, layers.make_optimizer(net), *[
+        torch.as_tensor(a, device=DEVICE) for a in first['inputs']])
+    return float(value), {n: p.grad.cpu().numpy()
+                          for n, p in net.named_parameters()}
+
+
+def check_data_parallel(card, worlds):
+    """Both trainers' fit() on ranks of one card each (NCCL) at every world
+    size of ``worlds``, through parallel.training.launch as the trainers'
+    --data-parallel runs them: each configuration's first step against
+    one card's on the same global batch from the same parameters (the
+    loss within TRAIN_LOSS_RTOL relative, every gradient within
+    TRAIN_GRAD_RTOL of its tensor's largest element); every rank's global
+    inputs (batch, labels, noise) after step 0 and its parameters after
+    the last step equal to rank 0's; ms a step (median of DP_TIMED, every
+    rank synchronised before and after), launches, NCCL device time and
+    device busy share of a profiled step, by rank. Returns the
+    checkpoints of the last world's profiled configurations by
+    trainer."""
+    import hashlib
+    from poreplex_torch.parallel import training
+    checkpoints, references = {}, {}
+    with tempfile.TemporaryDirectory() as outdir:
+        for world in worlds:
+            devices = [torch.device('cuda', k) for k in range(world)]
+            t0 = time.perf_counter()
+            out = training.launch(dp_rank, devices, {'outdir': outdir},
+                                  log=lambda line: None)
+            wall_s = time.perf_counter() - t0
+            for k, first in enumerate(out['first']):
+                ranks = [r[k] for r in out['ranks']]
+                trainer, batch = ranks[0]['trainer'], ranks[0]['global']
+                # rank 0's parameters and a global batch recur across D
+                key = hashlib.sha256(b''.join(
+                    [a.tobytes() for _, a in sorted(first['params'].items())]
+                    + [a.tobytes() for a in first['inputs']])).hexdigest()
+                if key not in references:
+                    references[key] = first_step_on_one_card(trainer, first)
+                want, grads = references[key]
+                loss_err = abs(ranks[0]['loss'] - want) / abs(want)
+                grad_err = max(float(np.abs(first['grads'][n] - g).max() /
+                                     np.abs(g).max())
+                               for n, g in grads.items())
+                traces = [r.get('trace') for r in ranks]
+                log('data-parallel training, {} at D = {} (NCCL), global '
+                    'batch {} ({} a rank): {:.1f} ms a step (median of {}; '
+                    'by rank {}); first step against one card: loss {:.8f} '
+                    'against {:.8f} (relative err {:.3e}), largest gradient '
+                    'err {:.3e} of its tensor\'s largest element; every '
+                    'rank\'s global inputs within {:.3e} of rank 0\'s after '
+                    'step 0, its parameters within {:.3e} after the last '
+                    'step{}; {}'.format(
+                        trainer, world, batch, batch // world,
+                        float(np.median(ranks[0]['ms'])), DP_TIMED,
+                        [['{:.1f}'.format(t) for t in r['ms']]
+                         for r in ranks],
+                        ranks[0]['loss'], want, loss_err, grad_err,
+                        max(r['inputs_diff'] for r in ranks),
+                        max(r['params_diff'] for r in ranks),
+                        '' if traces[0] is None else
+                        '; a profiled step by rank: launches {}, NCCL '
+                        'kernels {} taking {} ms (their waits for the '
+                        'other ranks included), device busy {} of {} ms '
+                        'wall ({}; without the NCCL kernels {} ms, '
+                        '{})'.format(
+                            [t['launches'] for t in traces],
+                            [t['nccl_launches'] for t in traces],
+                            ['{:.4f}'.format(t['nccl_ms']) for t in traces],
+                            ['{:.1f}'.format(t['busy_ms']) for t in traces],
+                            ['{:.1f}'.format(t['wall_ms']) for t in traces],
+                            ['{:.1%}'.format(t['busy_ms'] / t['wall_ms'])
+                             for t in traces],
+                            ['{:.1f}'.format(t['compute_ms'])
+                             for t in traces],
+                            ['{:.1%}'.format(t['compute_ms'] / t['wall_ms'])
+                             for t in traces]),
+                        card))
+                if not (loss_err <= TRAIN_LOSS_RTOL and
+                        grad_err <= TRAIN_GRAD_RTOL):
+                    raise AssertionError('{} at D = {}: the first step '
+                                         'differs from one card\'s'.format(
+                                             trainer, world))
+                if any(r['inputs_diff'] or r['params_diff'] for r in ranks):
+                    raise AssertionError('{} at D = {}: a rank\'s inputs or '
+                                         'parameters differ from rank '
+                                         '0\'s'.format(trainer, world))
+                if world > 1 and traces[0] is not None and not all(
+                        t['nccl_launches'] for t in traces):
+                    raise AssertionError('{} at D = {}: no NCCL kernel in a '
+                                         'step'.format(trainer, world))
+                checkpoints[trainer] = ranks[0]['path']
+            log('data-parallel training at D = {}: {:.1f} s with the ranks\' '
+                'start-up'.format(world, wall_s))
+        evaluate_workflows(checkpoints)
+
+
+def evaluate_workflows(checkpoints):
+    """The workflows' evaluate on the data-parallel checkpoints on the
+    card, over the held-out windows and heads train() kept back (drawn
+    again from the seed): kernels 1 to 3 must launch."""
+    from poreplex_torch import kernels
+    from poreplex_torch.training import data, scaler_workflow, workflow
+    windows, labels = data.demux_dataset(TRAIN_SIZE['demux'],
+                                         np.random.RandomState(SEED))
+    heads, targets = data.scaler_dataset(TRAIN_SIZE['scaler'],
+                                         np.random.RandomState(SEED))
+    n_eval = int(len(heads) * 0.2)
+    with tempfile.TemporaryDirectory() as outdir:
+        kernels.reset_launches()
+        acc = workflow.evaluate(checkpoints['train_demux'], (windows, labels),
+                                os.path.join(outdir, 'demux.txt'), log=log,
+                                device=DEVICE)
+        lines = scaler_workflow.evaluate(
+            checkpoints['train_scaler'], heads[:n_eval], targets[:n_eval],
+            os.path.join(outdir, 'scaler.txt'), log=log, device=DEVICE)
+        torch.cuda.synchronize()
+    launches = {name: kernels.launches[name] for name in
+                ('lstm2_stacked', 'bidirectional_lstm', 'lstm_last')}
+    log('the workflows\' evaluate on the data-parallel checkpoints: demux '
+        'accuracy {:.4f}, scaler {}; launches {}'.format(
+            acc, '; '.join(lines), json.dumps(launches)))
+    if not all(launches.values()):
+        raise AssertionError('the workflows\' evaluate did not launch '
+                             '{}'.format(launches))
 
 
 # ----------------------------------------------------------------------
@@ -1852,6 +2137,8 @@ def main(argv):
             reads = make_reads(np.random.default_rng(RANK_SEED), RANK_READS)
             check_mesh(config, reads, card)
             check_ranks(card, reads)
+            check_data_parallel(card, [world for world in (1, 2, 4)
+                                       if world <= torch.cuda.device_count()])
             log('chip_smoke --multi-card took {:.1f} s'.format(
                 time.perf_counter() - t0))
             print(card)
@@ -1921,6 +2208,7 @@ def main(argv):
     training_step_parity()
     with tempfile.TemporaryDirectory() as outdir:
         serve_trained(*train_on_card(outdir))
+    check_data_parallel(card, [1])
     log(libhdf5_line())
 
     kernels_line = []

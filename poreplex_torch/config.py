@@ -116,8 +116,6 @@ LATER_SLICES = {
     'albacore_onthefly': 'the albacore basecalling slice',
     'dashboard': 'the alignment slice',
     'minimap2_index': 'the alignment slice',
-    # the trainers' --data-parallel; not a key of the session's config
-    'data_parallel': 'the data-parallel training slice',
 }
 
 

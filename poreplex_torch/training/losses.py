@@ -34,6 +34,22 @@ def weighted_categorical_crossentropy(y_true_onehot, y_pred_probs, cost_mat,
     return torch.sum(ce * w) / torch.clamp(torch.sum(w), min=eps)
 
 
+def shard_weighted_categorical_crossentropy(y_true_onehot, y_pred_probs,
+                                            cost_mat, all_reduce, eps=1e-7):
+    """One rank's share of the global batch's weighted crossentropy: its
+    rows' ``sum(ce * w)`` over the weight sum of the whole batch,
+    ``all_reduce`` summing a tensor over the ranks. The shares sum to
+    ``weighted_categorical_crossentropy`` of the whole batch; the mean of
+    each rank's own weighted mean would not, whenever the ranks' weight
+    sums differ. The weight sum is detached: the weights index the cost
+    matrix by an argmax and carry no gradient."""
+    probs = torch.clamp(y_pred_probs, eps, 1.0 - eps)
+    ce = -torch.sum(y_true_onehot * torch.log(probs), dim=-1)
+    w = sample_weights(y_true_onehot, y_pred_probs, cost_mat)
+    total = all_reduce(torch.sum(w).detach())
+    return torch.sum(ce * w) / torch.clamp(total, min=eps)
+
+
 def weighted_categorical_accuracy(y_true_onehot, y_pred_probs, cost_mat):
     correct = (torch.argmax(y_true_onehot, -1) ==
                torch.argmax(y_pred_probs, -1)).to(y_pred_probs.dtype)

@@ -10,9 +10,12 @@ autograd, on the CUDA device unless the caller asks for the CPU, with
 ``torch.optim.Adam`` (optax.adam's formula). For the same seed it draws the
 same dataset and the same batches as the JAX trainer; initialisation and
 noise come from ``torch.Generator``s seeded as the JAX trainer seeds its
-keys, so they agree in distribution, not in value.
+keys, so they agree in distribution, not in value. ``--data-parallel``
+trains on one rank a visible card, where JAX shards the batch over a mesh
+of every local device (``parallel/training.py``).
 
-    python -m poreplex_torch.training.train_demux -o demux.npz [--cpu]
+    python -m poreplex_torch.training.train_demux -o demux.npz \
+        [--data-parallel] [--cpu]
 """
 
 import argparse
@@ -24,8 +27,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import weights
-from ..config import LATER_SLICES, resolve_device
+from ..config import resolve_device
 from ..ops import rnn
+from ..parallel import training as ranks
+from ..parallel.mesh import select_devices
 from . import layers, losses
 from .calibration import compute_calibration_table
 from .data import demux_dataset
@@ -73,18 +78,36 @@ class DemuxNet(nn.Module):
         return torch.softmax(rnn.dense(self.dense, h), dim=-1)
 
 
-def loss(net, windows, labels, cost_mat, noise=None):
+def loss(net, windows, labels, cost_mat, noise=None, all_reduce=None):
+    """The weighted crossentropy of the batch; with ``all_reduce`` (a
+    rank's sum over the ranks), this rank's share of the global batch's
+    (losses.shard_weighted_categorical_crossentropy)."""
     probs = net(windows, noise)
     onehot = F.one_hot(labels.long(), NUM_CLASSES).to(probs.dtype)
-    return losses.weighted_categorical_crossentropy(onehot, probs, cost_mat)
+    if all_reduce is None:
+        return losses.weighted_categorical_crossentropy(onehot, probs,
+                                                        cost_mat)
+    return losses.shard_weighted_categorical_crossentropy(
+        onehot, probs, cost_mat, all_reduce)
 
 
-def train_step(net, optimizer, windows, labels, noise, cost_mat):
+def train_step(net, optimizer, windows, labels, noise, cost_mat,
+               replica=None):
     """One Adam step on the weighted crossentropy; returns the loss before
-    the update."""
+    the update. With ``replica`` (parallel/training.py) this process is
+    one rank of a data-parallel world, given the whole global batch: it
+    computes on its rows, and its loss and gradients are the global
+    batch's, summed over the ranks."""
     optimizer.zero_grad(set_to_none=True)
-    value = loss(net, windows, labels, cost_mat, noise)
-    value.backward()
+    if replica is None:
+        value = loss(net, windows, labels, cost_mat, noise)
+        value.backward()
+    else:
+        rows = replica.rows(len(windows))
+        value = loss(net, windows[rows], labels[rows], cost_mat, noise[rows],
+                     replica.all_reduce)
+        value.backward()
+        value = replica.sum_gradients(net, value)
     optimizer.step()
     return value.detach()
 
@@ -98,11 +121,29 @@ def save_checkpoint(path, net, calibration, cost_mat):
 
 def train(output_path, steps=300, batch_size=64, n_per_class=400, seed=0,
           learning_rate=1e-3, eval_fraction=0.25, log=print, data=None,
-          device='cuda'):
+          device='cuda', devices=None):
     """data: optional (windows, labels), e.g. from data.dumps_dataset over
     adapter-signal dump inventories of barcoded control runs; defaults to
-    the synthetic set. Returns the held-out accuracy."""
-    device = resolve_device(device)
+    the synthetic set. devices: None to train in this process on
+    ``device``; else a list as parallel.mesh.select_devices gives, one rank
+    a device (a world of one for one device), the batch rounded to a
+    multiple of the ranks as the JAX trainer rounds it for its mesh.
+    Returns the held-out accuracy."""
+    options = dict(output_path=output_path, steps=steps,
+                   batch_size=batch_size, n_per_class=n_per_class, seed=seed,
+                   learning_rate=learning_rate, eval_fraction=eval_fraction,
+                   data=data)
+    if devices is None:
+        return fit(None, resolve_device(device), log, **options)
+    return ranks.launch(fit, devices, options, log)
+
+
+def fit(replica, device, log, output_path, steps, batch_size, n_per_class,
+        seed, learning_rate, eval_fraction, data):
+    """train() in this process on ``device``: alone (``replica`` None) or
+    as one rank of a data-parallel world, which draws the global batches
+    and noise as one process does and, on rank 0 alone, evaluates and
+    writes the checkpoint (the other ranks return None)."""
     if device.type == 'cuda':
         rnn.use_full_fp32()
     rng = np.random.RandomState(seed)
@@ -115,6 +156,9 @@ def train(output_path, steps=300, batch_size=64, n_per_class=400, seed=0,
     cost_mat = torch.as_tensor(DEFAULT_COST_MAT, device=device)
     net = DemuxNet.from_params(init_params(
         torch.Generator(device=device).manual_seed(seed)))
+    if replica is not None:
+        replica.broadcast(net)
+        batch_size = ranks.round_batch(batch_size, replica.world)
     optimizer = layers.make_optimizer(net, learning_rate)
     noise_gen = torch.Generator(device=device).manual_seed(seed + 1)
 
@@ -126,9 +170,11 @@ def train(output_path, steps=300, batch_size=64, n_per_class=400, seed=0,
                                            device=device)
         value = train_step(net, optimizer, batch,
                            torch.as_tensor(train_l[idx], device=device),
-                           noise, cost_mat)
+                           noise, cost_mat, replica)
         if step % 50 == 0 or step == steps - 1:
             log('step {:4d} loss {:.4f}'.format(step, float(value)))
+    if replica is not None and replica.rank != 0:
+        return None
 
     with torch.no_grad():
         probs = net(torch.as_tensor(np.asarray(eval_w, np.float32),
@@ -161,15 +207,15 @@ def main(argv=None):
                              'synthetic data')
     parser.add_argument('--data-parallel', default=False,
                         action='store_true',
-                        help='shard training batches over all local devices '
-                             '(not ported yet)')
+                        help='shard training batches over all local devices: '
+                             'one rank a visible card (one CPU rank with '
+                             '--cpu)')
     parser.add_argument('--cpu', default=False, action='store_true',
                         help='train on the CPU instead of the CUDA device')
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            'data-parallel training is not ported yet; it waits for '
-            + LATER_SLICES['data_parallel'])
+    device = 'cpu' if args.cpu else 'cuda'
+    devices = select_devices({'device': device}) if args.data_parallel \
+        else None
 
     data = None
     if args.dumps:
@@ -181,7 +227,7 @@ def main(argv=None):
         data = dumps_dataset(runs, rng=np.random.RandomState(args.seed))
 
     train(args.output, steps=args.steps, batch_size=args.batch_size,
-          seed=args.seed, data=data, device='cpu' if args.cpu else 'cuda')
+          seed=args.seed, data=data, device=device, devices=devices)
 
 
 if __name__ == '__main__':

@@ -9,8 +9,11 @@ the stacked recurrence of ``ops/rnn.py`` under autograd, on the CUDA device
 unless the caller asks for the CPU, ``torch.optim.Adam`` (optax.adam's
 formula), Pearson-r/RMSD evaluation like the reference prints. For the same
 seed it draws the same dataset and batches as the JAX trainer.
+``--data-parallel`` trains on one rank a visible card, where JAX shards the
+batch over a mesh of every local device (``parallel/training.py``).
 
-    python -m poreplex_torch.training.train_scaler -o scaler.npz [--cpu]
+    python -m poreplex_torch.training.train_scaler -o scaler.npz \
+        [--data-parallel] [--cpu]
 """
 
 import argparse
@@ -22,8 +25,10 @@ import torch
 from torch import nn
 
 from .. import weights
-from ..config import LATER_SLICES, resolve_device
+from ..config import resolve_device
 from ..ops import rnn
+from ..parallel import training as ranks
+from ..parallel.mesh import select_devices
 from . import layers
 from .data import scaler_dataset
 
@@ -66,12 +71,29 @@ def loss(net, heads, targets_std):
     return torch.mean((net(heads) - targets_std) ** 2)
 
 
-def train_step(net, optimizer, heads, targets_std):
+def shard_loss(net, heads, targets_std, world):
+    """One rank's share of the mean squared error of a global batch split
+    in ``world`` equal shares: its rows' squared errors over the global
+    batch's count."""
+    return torch.sum((net(heads) - targets_std) ** 2) / \
+        (targets_std.numel() * world)
+
+
+def train_step(net, optimizer, heads, targets_std, replica=None):
     """One Adam step on the mean squared error; returns the loss before the
-    update."""
+    update. With ``replica`` (parallel/training.py) this process is one
+    rank of a data-parallel world, given the whole global batch: it
+    computes on its rows, and its loss and gradients are the global
+    batch's, summed over the ranks."""
     optimizer.zero_grad(set_to_none=True)
-    value = loss(net, heads, targets_std)
-    value.backward()
+    if replica is None:
+        value = loss(net, heads, targets_std)
+        value.backward()
+    else:
+        rows = replica.rows(len(heads))
+        value = shard_loss(net, heads[rows], targets_std[rows], replica.world)
+        value.backward()
+        value = replica.sum_gradients(net, value)
     optimizer.step()
     return value.detach()
 
@@ -88,11 +110,28 @@ def save_checkpoint(path, net, transform, input_defs):
 
 def train(output_path, steps=400, batch_size=32, n_samples=2000, seed=0,
           learning_rate=1e-3, eval_fraction=0.2, log=print, data=None,
-          device='cuda'):
+          device='cuda', devices=None):
     """data: optional (heads [N, T], targets [N, 2]) in place of the
-    synthetic set. Returns {'scale'|'shift': {'pearson_r', 'rmsd'}} on the
-    held-out heads."""
-    device = resolve_device(device)
+    synthetic set. devices: None to train in this process on ``device``;
+    else a list as parallel.mesh.select_devices gives, one rank a device (a
+    world of one for one device), the batch rounded to a multiple of the
+    ranks as the JAX trainer rounds it for its mesh. Returns
+    {'scale'|'shift': {'pearson_r', 'rmsd'}} on the held-out heads."""
+    options = dict(output_path=output_path, steps=steps,
+                   batch_size=batch_size, n_samples=n_samples, seed=seed,
+                   learning_rate=learning_rate, eval_fraction=eval_fraction,
+                   data=data)
+    if devices is None:
+        return fit(None, resolve_device(device), log, **options)
+    return ranks.launch(fit, devices, options, log)
+
+
+def fit(replica, device, log, output_path, steps, batch_size, n_samples,
+        seed, learning_rate, eval_fraction, data):
+    """train() in this process on ``device``: alone (``replica`` None) or
+    as one rank of a data-parallel world, which draws the global batches
+    as one process does and, on rank 0 alone, evaluates and writes the
+    checkpoint (the other ranks return None)."""
     if device.type == 'cuda':
         rnn.use_full_fp32()
     rng = np.random.RandomState(seed)
@@ -115,15 +154,21 @@ def train(output_path, steps=400, batch_size=32, n_samples=2000, seed=0,
 
     net = ScalerNet.from_params(init_params(
         torch.Generator(device=device).manual_seed(seed)))
+    if replica is not None:
+        replica.broadcast(net)
+        batch_size = ranks.round_batch(batch_size, replica.world)
     optimizer = layers.make_optimizer(net, learning_rate)
 
     for step in range(steps):
         idx = rng.randint(0, len(tr_h), batch_size)
         value = train_step(net, optimizer,
                            torch.as_tensor(tr_h[idx], device=device),
-                           torch.as_tensor(tr_std[idx], device=device))
+                           torch.as_tensor(tr_std[idx], device=device),
+                           replica)
         if step % 50 == 0 or step == steps - 1:
             log('step {:4d} loss {:.4f}'.format(step, float(value)))
+    if replica is not None and replica.rank != 0:
+        return None
 
     with torch.no_grad():
         pred = net(torch.as_tensor(ev_h, device=device)).cpu().numpy() * \
@@ -148,17 +193,17 @@ def main(argv=None):
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--data-parallel', default=False,
                         action='store_true',
-                        help='shard training batches over all local devices '
-                             '(not ported yet)')
+                        help='shard training batches over all local devices: '
+                             'one rank a visible card (one CPU rank with '
+                             '--cpu)')
     parser.add_argument('--cpu', default=False, action='store_true',
                         help='train on the CPU instead of the CUDA device')
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            'data-parallel training is not ported yet; it waits for '
-            + LATER_SLICES['data_parallel'])
+    device = 'cpu' if args.cpu else 'cuda'
+    devices = select_devices({'device': device}) if args.data_parallel \
+        else None
     train(args.output, steps=args.steps, batch_size=args.batch_size,
-          seed=args.seed, device='cpu' if args.cpu else 'cuda')
+          seed=args.seed, device=device, devices=devices)
 
 
 if __name__ == '__main__':

@@ -431,15 +431,33 @@ def test_later_slice_option_stops(option, tmp_path, capsys):
 
 @pytest.mark.parametrize('trainer', ['train_demux', 'train_scaler'])
 def test_trainer_data_parallel_stops(trainer, tmp_path):
-    """The trainers' --data-parallel waits for its own slice: the
-    multi-GPU slice carries the session, not training."""
-    import importlib
-    module = importlib.import_module('poreplex_torch.training.' + trainer)
+    """The trainers' --data-parallel with --cpu trains on a world of one
+    gloo rank (the CPU mesh of parallel.mesh.select_devices), spawned by
+    the trainer and bounded here by the ranks' time limit, and stops with
+    a checkpoint that loads in both packages' models."""
+    import subprocess
+    from test_torch_distributed import RANK_TIMEOUT
+    from test_torch_training import (assert_demux_models_agree,
+                                     assert_scaler_models_agree)
+    from poreplex_torch.training import data
     path = tmp_path / 'model.npz'
-    with pytest.raises(NotImplementedError,
-                       match='data-parallel training slice'):
-        module.main(['-o', str(path), '--data-parallel', '--cpu'])
-    assert not path.exists()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, '-m', 'poreplex_torch.training.' + trainer, '-o',
+         str(path), '--data-parallel', '--cpu', '--steps', '1',
+         '--batch-size', '4'],
+        capture_output=True, text=True, cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS='2'),
+        timeout=RANK_TIMEOUT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert 'step    0 loss' in out.stdout
+    rng = np.random.RandomState(2)
+    if trainer == 'train_demux':
+        windows, _ = data.demux_dataset(2, rng)
+        assert_demux_models_agree(str(path), windows[:6])
+    else:
+        heads, _ = data.scaler_dataset(4, rng, pooled_length=60)
+        assert_scaler_models_agree(str(path), heads)
 
 
 @pytest.mark.parametrize('option', sorted(TPU_KNOBS))

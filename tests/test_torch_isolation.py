@@ -54,7 +54,10 @@ def test_importing_every_module_loads_no_jax():
             'poreplex_torch.commandline', 'poreplex_torch.__main__',
             'poreplex_torch.pipeline.source', 'poreplex_torch.parallel',
             'poreplex_torch.parallel.mesh', 'poreplex_torch.parallel.sharding',
-            'poreplex_torch.parallel.distributed'} <= modules
+            'poreplex_torch.parallel.distributed',
+            'poreplex_torch.parallel.training',
+            'poreplex_torch.training.workflow',
+            'poreplex_torch.training.scaler_workflow'} <= modules
     assert loaded_after_importing_the_port(FORBIDDEN) == ''
 
 
