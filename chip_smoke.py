@@ -50,7 +50,13 @@
    resumed over the same reads it must analyse only the reads that were
    not okay, and over the okay reads it must launch no kernel and leave a
    header-only summary; then ``python -m poreplex_torch --version`` must
-   exit with 0;
+   exit with 0; then the same reads from memory through commandline.main
+   with -p 1, 2, 4 and 1 in turns, in a process of its own: each run
+   launches every kernel and writes the main path's summary rows and
+   FASTQ records, -p N starts N ingest worker processes that import
+   neither torch nor jax and -p 1 none; prints reads/s, A:fast5_load and
+   its A:* parts and os.cpu_count() of each (reads from memory: the
+   card's host has no libhdf5, so FAST5 ingest is timed nowhere here);
 6. training at full widths: one demux step at [64, 300] and one scaler
    step at [8, 2000] on the card held against the same step on the CPU
    (loss within 1e-5 relative, every gradient within 1e-4 of its tensor's
@@ -67,7 +73,8 @@
    launches, NCCL device time and busy share of a profiled step, then the
    workflows' evaluate (training/workflow.py, scaler_workflow.py) on the
    ranks' checkpoints, where kernels 1 to 3 must launch; then whether
-   libhdf5 can be dlopened (a probe, never a failure);
+   libhdf5 can be dlopened (a probe, never a failure) and the native FAST5
+   reader built with g++ (a probe too);
 7. several cards (on one card, the sharded code on that card): each of the
    seven wrappers on tensors on every visible card with cuda:0 current,
    against its plain version; the main path's reads through a
@@ -1063,6 +1070,168 @@ def session_through_cli(config, results, reads, main_outdir, card):
                              '{}'.format(out.returncode, out.stderr))
     log('python -m poreplex_torch --version: {}'.format(
         out.stdout.splitlines()[0]))
+
+
+# the ingest turns: -p of each run, in turns, each from a fresh session
+INGEST_TURNS = (1, 2, 4, 1)
+INGEST_TIMEOUT = 300
+
+
+def ingest_argv(indir, outdir, parallel):
+    return rank_argv(indir, outdir) + ['-p', str(parallel)]
+
+
+def ingest_main(argv):
+    """The ingest turns, in a process of their own started by
+    check_ingest_turns: ``WORKDIR MAIN_OUTDIR``. Takes the main path's
+    reads from WORKDIR/reads.pickle, warms the card up, then runs them
+    from memory through commandline.main once for each -p of
+    INGEST_TURNS: every kernel launches, every summary row and FASTQ
+    record equals the main path's, -p N (N >= 2) starts N workers that
+    import neither torch nor jax and -p 1 none. Writes WORKDIR/turns.json.
+    (Its own process, started with -c: a spawned worker imports the main
+    module of the process that spawns it unless that is run with -c or
+    -m, and this script's imports torch.)"""
+    import pickle
+    from poreplex_torch.config import build_config
+    from poreplex_torch.pipeline import ingest
+    from poreplex_torch.pipeline.analyzer import BatchAnalyzer
+    from poreplex_torch.pipeline.source import MemorySource
+    work, main_outdir = argv
+    with open(os.path.join(work, 'reads.pickle'), 'rb') as f:
+        reads = pickle.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        warm = BatchAnalyzer(build_config(
+            tmp, tmp, barcoding=True, trim_adapter=True, mesh_shape=1,
+            measure_polya=True, filter_unsplit_reads=True))
+        warm.process_batch(None, mesh_records(warm, reads[:16]))
+        del warm
+    torch.cuda.synchronize()
+
+    pings = []
+    warm_pool = ingest.IngestPool.warm
+
+    def recording_warm(pool):
+        ping = warm_pool(pool)
+        pings.append((pool.worker_pids(), ping))
+        return ping
+    ingest.IngestPool.warm = recording_warm
+    ref_header, ref_rows = summary_rows(main_outdir)
+    ref_fastq = fastq_records(main_outdir)
+    turns = []
+    for i, parallel in enumerate(INGEST_TURNS):
+        indir = os.path.join(work, 'in')
+        outdir = os.path.join(work, 'out-{}'.format(i))
+        os.makedirs(indir, exist_ok=True)
+        del pings[:]
+        result, wall_s, launches, stages = run_cli(
+            ingest_argv(indir, outdir, parallel), MemorySource(reads))
+        where = '-p {} (turn {})'.format(parallel, i)
+        if result is None:
+            raise AssertionError(where + ': the session did not finish')
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError('{}: never launched {}'.format(where,
+                                                                missing))
+        header, rows = summary_rows(outdir)
+        if header != ref_header or rows != ref_rows:
+            raise AssertionError(where + ': summary rows differ from the '
+                                 'main path\'s')
+        if fastq_records(outdir) != ref_fastq:
+            raise AssertionError(where + ': FASTQ records differ from the '
+                                 'main path\'s')
+        workers = [pid for pids, _ in pings for pid in pids]
+        packages = [names for _, ping in pings for _, names in ping]
+        if len(workers) != (parallel if parallel >= 2 else 0) or any(
+                'torch' in names or 'jax' in names for names in packages):
+            raise AssertionError('{}: workers {}, packages {}'.format(
+                where, workers, packages))
+        turns.append({'parallel': parallel, 'wall_s': wall_s,
+                      'launches': launches, 'stages': stages,
+                      'workers': len(workers), 'reads': len(reads),
+                      'rows': len(rows)})
+    with open(os.path.join(work, 'turns.json'), 'w') as f:
+        json.dump(turns, f)
+    return 0
+
+
+def check_ingest_turns(reads, main_outdir, card):
+    """The main path's reads from memory through the command line with -p
+    1, 2, 4 and 1 in turns (ingest_main, in a process of its own): reads/s
+    from main entered to main returned, A:fast5_load and its A:* parts
+    (with workers, a part's time is the largest of the batch's chunks'),
+    S:build_analyzer (which starts the workers), launches, and the host's
+    CPU count. These reads come from memory: the card's host reads no
+    FAST5 (no libhdf5), so no line here times FAST5 ingest."""
+    import pickle
+    with tempfile.TemporaryDirectory() as work:
+        with open(os.path.join(work, 'reads.pickle'), 'wb') as f:
+            pickle.dump(list(reads.values()), f,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+        log('ingest turns: the {} reads pickle to {:.1f} MB (what a '
+            'MemorySource sends each worker)'.format(
+                len(reads), os.path.getsize(f.name) / 1e6))
+        code = ('import sys, chip_smoke; '
+                'sys.exit(chip_smoke.ingest_main(sys.argv[1:]))')
+        with open(os.path.join(work, 'log'), 'w') as logf:
+            proc = subprocess.Popen(
+                [sys.executable, '-c', code, work, main_outdir],
+                stdout=logf, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            try:
+                code = proc.wait(timeout=INGEST_TIMEOUT)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if code != 0:
+            with open(os.path.join(work, 'log')) as f:
+                log('ingest turns log:\n' + f.read()[-3000:])
+            raise AssertionError('the ingest turns exited with {}'.format(
+                code))
+        with open(os.path.join(work, 'turns.json')) as f:
+            turns = json.load(f)
+    for turn in turns:
+        stages = turn['stages']
+        parts = {name: stages[name]['total_s'] for name in
+                 ('A:open', 'A:raw', 'A:pool', 'A:bcall')}
+        log('ingest -p {}: {} reads ({} summary rows), {:.1f} reads/s '
+            '({:.3f} s from main entered to main returned); {} workers; '
+            'A:fast5_load {:.4f} s ({} batches), parts {}; '
+            'S:build_analyzer {:.4f} s; B:device_stage1 {:.4f} s, C:polya '
+            '{:.4f} s; launches {}; os.cpu_count() {}; reads from memory; '
+            '{}'.format(
+                turn['parallel'], turn['reads'], turn['rows'],
+                turn['reads'] / turn['wall_s'], turn['wall_s'],
+                turn['workers'], stages['A:fast5_load']['total_s'],
+                stages['A:fast5_load']['calls'], json.dumps(parts),
+                stages['S:build_analyzer']['total_s'],
+                stages['B:device_stage1']['total_s'],
+                stages['C:polya']['total_s'],
+                json.dumps(turn['launches']), os.cpu_count(), card))
+    log('ingest turns: every kernel launched in each, summary rows and '
+        'FASTQ records equal to the main path\'s, -p N started N workers '
+        'that imported neither torch nor jax, -p 1 none')
+
+
+def native_reader_line():
+    """Builds the native FAST5 reader with g++ and says whether libhdf5
+    opens for it; never fails."""
+    from poreplex_torch import fast5_native
+    t0 = time.perf_counter()
+    try:
+        path = fast5_native.build_library()
+    except (OSError, subprocess.CalledProcessError) as exc:
+        return 'native FAST5 reader: not built ({})'.format(exc)
+    built_s = time.perf_counter() - t0
+    lib = fast5_native.get_library()
+    return ('native FAST5 reader: built {} with g++ in {:.1f} s; {}'.format(
+        os.path.relpath(path, os.path.dirname(os.path.abspath(__file__))),
+        built_s,
+        'libhdf5 opened for it' if lib is not None else
+        'no libhdf5 opens on this host, so FAST5 ingest is held by the CPU '
+        'tests only (tests/test_torch_fast5_native.py, '
+        'tests/test_torch_ingest.py)'))
 
 
 def polya_summary(results, timings, reads, polya_blens):
@@ -2201,6 +2370,7 @@ def main(argv):
         profile_batch(analyzer, list(reads.values())[:BATCH])
         del analyzer
         session_through_cli(config, results, reads, outdir, card)
+        check_ingest_turns(reads, outdir, card)
         check_every_card(config)
         check_mesh(config, list(reads.values()), card)
         check_ranks(card)
@@ -2210,6 +2380,7 @@ def main(argv):
         serve_trained(*train_on_card(outdir))
     check_data_parallel(card, [1])
     log(libhdf5_line())
+    log(native_reader_line())
 
     kernels_line = []
     seen = set()

@@ -19,7 +19,7 @@ import shutil
 import sys
 
 from . import __version__
-from .config import LATER_SLICES, build_config
+from .config import LATER_SLICES, build_config, ingest_process_count
 from .utils import errx, errprint
 
 VERSION_STRING = """\
@@ -122,6 +122,7 @@ def show_configuration(config, output):
     _(" * Output:", config['outputdir'])
     _(" * Device:", config['device'])
     _(" * Device batch size:", config['device_batch_size'])
+    _(" * Ingest worker processes:", ingest_process_count(config))
     _(" * Presets:", config['preset_name'])
     _(" * Basecall on-the-fly:\t",
       'Yes (albacore {})'.format(config.get('albacore_version'))
@@ -347,11 +348,13 @@ def build_parser():
     group = parser.add_argument_group('Pipeline Options')
     group.add_argument('-p', '--parallel', default=1, type=int,
                        metavar='COUNT',
-                       help='number of host ingest worker processes '
-                            '(poreplex-compatible flag; stored, but the '
-                            'ingest workers come with the native FAST5 '
-                            'ingest slice and the reads are read in the '
-                            'analyzer\'s thread; default: 1)')
+                       help='number of host ingest worker processes: with '
+                            '2 or more, each batch\'s reads are read by '
+                            'that many processes (FAST5 through the native '
+                            'HDF5 reader, else h5py), with 1 in the '
+                            'analyzer\'s process; either way the next batch '
+                            'is read while the current one computes '
+                            '(default: 1)')
     group.add_argument('--device-batch-size', default=256, type=int,
                        metavar='SIZE',
                        help='reads per stage-1 launch on the device '

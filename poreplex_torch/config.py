@@ -79,7 +79,8 @@ def setup_output_name_mapping(config):
 DEFAULT_OPTIONS = dict(
     quiet=True,
     interactive=False,       # ask before clearing a non-empty output dir
-    parallel=1,              # host ingest workers (kept for the CLI)
+    parallel=1,              # -p: the ingest workers of 'auto'
+    ingest_processes='auto',  # PHASE A worker processes ('auto': below)
     live=False,
     analysis_start_delay=0,  # seconds before a live batch is analysed
     contig_aliases=None,
@@ -117,6 +118,16 @@ LATER_SLICES = {
     'dashboard': 'the alignment slice',
     'minimap2_index': 'the alignment slice',
 }
+
+
+def ingest_process_count(config):
+    """PHASE A's worker processes: ``ingest_processes``, where 'auto' is
+    ``parallel`` when that is 2 or more and none otherwise (the batches
+    are then loaded in the analyzer's process)."""
+    count = config['ingest_processes']
+    if count == 'auto':
+        count = config['parallel'] if config['parallel'] >= 2 else 0
+    return int(count)
 
 
 def resolve_device(device):

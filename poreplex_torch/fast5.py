@@ -4,14 +4,15 @@ guppy ``Move`` tables (events rebuilt from fixed-stride signal blocks), and
 the copy of a read's subtree into a multi-read output file.
 
 h5py is imported only inside the functions that open FAST5 files, so the
-rest of the port runs where h5py is not installed.
+rest of the port runs where h5py is not installed; scipy's median filter
+only where a guppy table is read, which keeps an ingest worker's start
+short.
 """
 
 import ctypes
 import os.path
 
 import numpy as np
-from scipy.signal import medfilt
 
 __all__ = ['get_read_ids', 'Fast5Reader', 'Fast5FilePool', 'EventTable',
            'DuplicatedReadError', 'find_libhdf5']
@@ -317,6 +318,7 @@ class Fast5Reader:
         first = summary['first_sample_template']
         nblocks = len(events)
 
+        from scipy.signal import medfilt
         filtered = medfilt(self.get_raw_data(first, first + stride * nblocks),
                            self.RAWSIGNAL_PREFILTER_SIZE)
         if -(-len(filtered) // stride) != nblocks:

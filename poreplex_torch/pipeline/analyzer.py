@@ -2,7 +2,8 @@
 and status lattice, run as batch phases:
 
   A  host read load from the session's source (metadata, raw signal
-     pooled to pA frames, basecall)
+     pooled to pA frames, basecall: pipeline/ingest.py), in this process
+     or over ingest worker processes
   B  device stage 1: scaler + QC + scaling + Viterbi extents + demux net
   C  host: segments, gates, basecall events and adapter trimming; the
      poly(A) rounds and the unsplit-read windows on the device
@@ -23,32 +24,22 @@ import traceback
 
 import numpy as np
 
+from ..config import ingest_process_count
 from ..parallel.mesh import select_devices
 from ..parallel.sharding import ShardedEngine
-from ..utils import pack_unhandled_exception, trace
+from ..utils import GLOBAL_TIMER, pack_unhandled_exception, trace
 from .engine import DeviceEngine
+# EVENT_COLUMNS and pool_signal are PHASE A's, named here for callers
+from .ingest import (EVENT_COLUMNS, IngestPool, ingest_params,  # noqa: F401
+                     load_one, load_reads, pool_signal)
 from .polya import PolyaAnalyzer
 from .read import ReadRecord
 from .source import DirectorySource
 from .unsplit import UnsplitReadDetector
 
-# basecall event columns stage C reads (an albacore Events read fetches
-# only these members); the event dumps take every column
-EVENT_COLUMNS = ('mean', 'start', 'move', 'p_model_state')
-
 
 class SignalAnalysisError(Exception):
     pass
-
-
-def pool_signal(raw, stride, pa_scale, offset):
-    """Stride-mean pooling of a raw DAC signal into pA frames. The mean is
-    taken in DAC units and the affine pA = pa_scale * (dac + offset) is
-    applied to the pooled means only: the mean commutes with the affine,
-    so this is the pooled pA signal at 1/stride of the conversion work."""
-    trimmed = raw[:len(raw) - len(raw) % stride]
-    pooled = trimmed.reshape(-1, stride).mean(axis=1, dtype=np.float32)
-    return pooled * np.float32(pa_scale) + np.float32(pa_scale * offset)
 
 
 def read_kmer_size(path):
@@ -90,45 +81,54 @@ class BatchAnalyzer:
             UnsplitReadDetector(config, self.engine.unsplitmodel,
                                 devices=self.devices)
             if config['filter_unsplit_reads'] else None)
-        self._event_columns = (None if config['dump_basecalls']
-                               else EVENT_COLUMNS)
         if config['barcoding']:
             self.demux_threshold = self.engine.demux.score_threshold(
                 config['barcoding_quality_filter'])
+        # PHASE A's worker processes, started here (inside the session's
+        # S:build_analyzer) so that the first batch does not wait for them
+        self.ingest_params = ingest_params(config, self.engine.scaler)
+        self.ingest_pool = None
+        processes = ingest_process_count(config)
+        if processes:
+            self.ingest_pool = IngestPool(self.source, self.ingest_params,
+                                          processes)
+            try:
+                self.ingest_pool.warm()
+            except Exception:
+                # the batches are then loaded in this process
+                traceback.print_exc()
+                self.close()
+
+    def close(self):
+        """Stop the ingest workers, if any."""
+        if self.ingest_pool is not None:
+            self.ingest_pool.shutdown()
+            self.ingest_pool = None
 
     # ------------------------------------------------------------------
     def load_batch(self, reads):
         """PHASE A: reads is a list of (fast5_filename, read_id). Returns
         the preloaded state for process_batch: (results of reads that
-        stopped here, records that go on)."""
-        results = []
-        records = []
-        readers = []
-        # the reads of one multi-read file share one open handle until
-        # the batch is loaded
-        open_read = self.source.opener()
+        stopped here, records that go on). With ingest workers the batch
+        is loaded over them; a pool that raises is shut down and the
+        batch, and every later one, is loaded in this process."""
         with trace('A:fast5_load'):
-            try:
-                for f5file, read_id in reads:
-                    if not self.source.exists(f5file):
-                        results.append({'filename': f5file,
-                                        'read_id': read_id,
-                                        'status': 'disappeared'})
-                        continue
-                    rec = ReadRecord(f5file, self.inputdir, read_id)
-                    try:
-                        with trace('A:open'):
-                            reader = open_read(f5file, read_id)
-                    except Exception:
-                        traceback.print_exc()
-                        rec.set_status('irregular_fast5', stop=True)
-                        results.append(rec.report())
-                        continue
-                    readers.append(reader)
-                    self.add_read(rec, reader, results, records)
-            finally:
-                for reader in readers:
-                    reader.close()
+            payloads = None
+            if self.ingest_pool is not None:
+                try:
+                    payloads, timers = self.ingest_pool.load(reads)
+                except Exception:
+                    traceback.print_exc()
+                    self.close()
+                else:
+                    for name, seconds in timers.items():
+                        GLOBAL_TIMER.add(name, seconds)
+            if payloads is None:
+                payloads = load_reads(reads, self.source,
+                                      self.ingest_params, trace)
+            results, records = [], []
+            for p in payloads:
+                self._file_payload(p, results, records)
         return results, records
 
     def add_read(self, rec, reader, results, records):
@@ -136,57 +136,34 @@ class BatchAnalyzer:
         with its metadata attributes, get_raw_dac and get_basecall) and
         file the record under results (stopped) or records. The caller
         closes the reader."""
-        try:
-            self._load_read(rec, reader)
-        except Exception as exc:
-            results.append(pack_unhandled_exception(
-                rec.filename, rec.read_id, exc, sys.exc_info()[2]))
+        self._file_payload(load_one(self.ingest_params, reader, rec.filename,
+                                    rec.read_id, trace),
+                           results, records, rec)
+
+    def _file_payload(self, p, results, records, rec=None):
+        """File a read's PHASE A payload (pipeline/ingest.py) under
+        results, as its report, or under records, as the ReadRecord that
+        goes on."""
+        if 'error' in p:
+            results.append(p['error'])
             return
+        if rec is None:
+            rec = ReadRecord(p['filename'], self.inputdir, p['read_id'])
+        if 'meta' in p:
+            (rec.sampling_rate, rec.duration, rec.channel, rec.start_time_s,
+             rec.run_id, rec.sample_id) = p['meta']
+        rec.set_status(p['status'], stop=p['stopped'])
         if rec.is_stopped():
             results.append(rec.report())
-        else:
-            records.append(rec)
-
-    def _load_read(self, rec, reader):
-        rec.sampling_rate = reader.sampling_rate
-        rec.duration = reader.duration
-        rec.channel = reader.channel_number
-        rec.start_time_s = round(reader.start_time / reader.sampling_rate, 3)
-        rec.run_id = reader.run_id
-        rec.sample_id = reader.sample_id
-
-        # minimum-signal gate of the scaler head
-        scaler = self.engine.scaler
-        sigload_length = min(scaler.input_length, reader.duration)
-        sigload_length -= sigload_length % scaler.input_stride
-        if sigload_length < scaler.min_length:
-            rec.set_status('scaler_signal_too_short', stop=True)
             return
-
-        with trace('A:raw'):
-            raw = reader.get_raw_dac()
-        with trace('A:pool'):
-            rec.pooled = pool_signal(raw, self.stride, reader.pa_scale,
-                                     reader.offset)
-        if self.polya_analyzer is not None:
-            # poly(A) windows are cut from the raw signal: a 16-bit DAC
-            # stays integer (a lossless wire), a wider one becomes pA
-            if raw.dtype.kind in 'iu' and raw.dtype.itemsize <= 2:
-                rec.raw_dac = raw
-                rec.calib = (float(reader.pa_scale), float(reader.offset))
-            else:
-                rec.raw_pa = np.asarray(
-                    raw * np.float32(reader.pa_scale) +
-                    np.float32(reader.pa_scale * reader.offset), np.float32)
-        rec.head_len = min(scaler.pooled_length, len(rec.pooled))
-
-        # a basecall read failure is raised in PHASE C, so stage-1
-        # statuses keep their precedence
-        try:
-            with trace('A:bcall'):
-                rec.bcall = reader.get_basecall(columns=self._event_columns)
-        except Exception as exc:
-            rec.bcall_error = exc
+        rec.pooled = p['pooled']
+        rec.head_len = p['head_len']
+        rec.raw_dac = p.get('raw_dac')
+        rec.raw_pa = p.get('raw_pa')
+        rec.calib = p.get('calib', rec.calib)
+        rec.bcall = p.get('bcall')
+        rec.bcall_error = p.get('bcall_error')
+        records.append(rec)
 
     # ------------------------------------------------------------------
     def process_batch(self, reads, preloaded=None):

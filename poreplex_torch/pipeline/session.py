@@ -3,14 +3,18 @@ live mode, watches it for new files), gathers its entries into batches of
 ``batch_chunk_size``, runs each batch through the BatchAnalyzer and writes
 the results to every enabled sink.
 
-Batches run on one compute thread, so the device works on one batch at a
-time and batches finish in scan order; a batch's writes run on one writer
-thread while the next batch computes, so the written order is the scan
-order too. Every read that finishes ``okay`` is appended to
-``OUTDIR/.processed-reads``; with ``resume`` the reads listed there are
-skipped, and in live mode a read found again is not queued twice. The
-reads come from the input directory's FAST5 files unless the caller hands
-``run`` another source (pipeline/source.py). In a process group of several
+A batch's PHASE A (reading its reads: pipeline/ingest.py, over worker
+processes with ``-p``) runs on a monitor thread while the batch before it
+computes; the device phases run on one compute thread, one batch at a
+time and in scan order, and a batch's writes run on one writer thread
+while the next batch computes, so the written order is the scan order
+too. A batch starts loading once the batch two before it has computed,
+so at most two batches' reads are held at once. Every read that
+finishes ``okay`` is appended to ``OUTDIR/.processed-reads``; with
+``resume`` the reads listed there are skipped, and in live mode a read
+found again is not queued twice. The reads come from the input
+directory's FAST5 files unless the caller hands ``run`` another source
+(pipeline/source.py). In a process group of several
 ranks (parallel/distributed.py, joined by the caller before the session
 starts) a session queues only the entries its rank owns, and the final
 counts are summed over the ranks at the end; rank 0 prints them.
@@ -19,6 +23,7 @@ counts are summed over the ranks at the end; rank 0 prints them.
 import asyncio
 import os
 import sys
+import threading
 import traceback
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -72,10 +77,15 @@ class ProcessingSession:
                 '{} need FAST5 input files and h5py; a {} has neither'.format(
                     ', '.join(refused), type(self.source).__name__))
         self.analyzer = None
+        self.analyzer_lock = threading.Lock()
+        # the futures of the two batches submitted last, each done once
+        # that batch has computed (or ended without computing)
+        self.computed = (None, None)
 
         self.executor_compute = ThreadPoolExecutor(1)
         self.executor_io = ThreadPoolExecutor(1)
-        self.executor_mon = ThreadPoolExecutor(2)
+        # PHASE A, the source's listing and the live watcher
+        self.executor_mon = ThreadPoolExecutor(max(2, config['parallel']))
 
         self.loop = None
         self.fastq_writer = self.fast5_writer = None
@@ -127,6 +137,8 @@ class ProcessingSession:
         self.executor_mon.shutdown()
         self.executor_compute.shutdown()
         self.executor_io.shutdown()
+        if self.analyzer is not None:
+            self.analyzer.close()
         for writer in (self.fastq_writer, self.fast5_writer,
                        self.npreaddb_writer, self.seqsummary_writer,
                        self.dump_writer):
@@ -190,14 +202,23 @@ class ProcessingSession:
         return task
 
     # ------------------------------------------------------------------
-    def analyze_batch(self, files):
-        """On the compute thread: the analyzer (built at the first batch,
-        timed as ``S:build_analyzer``) over one batch; returns (results,
-        aux)."""
-        if self.analyzer is None:
-            with GLOBAL_TIMER.stage('S:build_analyzer'):
-                self.analyzer = BatchAnalyzer(self.config, self.source)
-        return self.analyzer.process_batch(files)
+    def get_analyzer(self):
+        """The session's BatchAnalyzer, built by the thread that first
+        needs it (timed as ``S:build_analyzer``)."""
+        with self.analyzer_lock:
+            if self.analyzer is None:
+                with GLOBAL_TIMER.stage('S:build_analyzer'):
+                    self.analyzer = BatchAnalyzer(self.config, self.source)
+            return self.analyzer
+
+    def load_batch(self, files):
+        """On a monitor thread: PHASE A of one batch."""
+        return self.get_analyzer().load_batch(files)
+
+    def analyze_batch(self, preloaded):
+        """On the compute thread: the rest of a batch loaded by
+        load_batch; returns (results, aux)."""
+        return self.get_analyzer().process_batch(None, preloaded)
 
     def write_results(self, batchid, results, aux):
         """On the writer thread: every enabled sink, each timed as
@@ -217,6 +238,21 @@ class ProcessingSession:
                 fn(*args)
 
     async def run_process_batch(self, batchid, files):
+        # taken before the first await, so in the order of submission
+        before_last, last = self.computed
+        computed = self.loop.create_future()
+        self.computed = (last, computed)
+        try:
+            await self._process_batch(batchid, files, before_last, last,
+                                      computed)
+        finally:
+            if not computed.done():
+                computed.set_result(None)
+
+    async def _process_batch(self, batchid, files, before_last, last,
+                             computed):
+        """PHASE A once the batch two before has computed, the device
+        phases once the one before has, then the writes."""
         if self.config['analysis_start_delay'] > 0:
             try:
                 await asyncio.sleep(self.config['analysis_start_delay'])
@@ -225,8 +261,15 @@ class ProcessingSession:
 
         self.active_batches += 1
         try:
+            if before_last is not None:
+                await asyncio.shield(before_last)
+            preloaded = await self.run_in_executor_mon(self.load_batch,
+                                                       files)
+            if last is not None:
+                await asyncio.shield(last)
             results, aux = await self.loop.run_in_executor(
-                self.executor_compute, self.analyze_batch, files)
+                self.executor_compute, self.analyze_batch, preloaded)
+            computed.set_result(None)
 
             # a read already done (a live-mode re-feed) is dropped here
             nd_results = []

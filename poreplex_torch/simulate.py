@@ -298,13 +298,17 @@ class MemoryRead:
 
 # ---------------------------------------------------------------- FAST5
 
-def _write_basecall(parent, read):
+def _write_basecall(parent, read, basecall='albacore'):
     """Analyses/{Basecall_1D_000,Segmentation_000} with an albacore
-    Events table."""
+    Events table, or with a guppy Move table (``basecall='guppy'``)."""
     analyses = parent.require_group('Analyses')
     bc = analyses.require_group('Basecall_1D_000')
     seg = analyses.require_group('Segmentation_000')
-    bc.create_dataset('BaseCalled_template/Events', data=read.events)
+    if basecall == 'guppy':
+        bc.create_dataset('BaseCalled_template/Move',
+                          data=read.events['move'].astype(np.uint8))
+    else:
+        bc.create_dataset('BaseCalled_template/Events', data=read.events)
     fastq = '@{}\n{}\n+\n{}\n'.format(read.read_id, read.sequence,
                                       read.qstring)
     bc.create_dataset('BaseCalled_template/Fastq', data=np.bytes_(fastq))
@@ -318,36 +322,60 @@ def _write_basecall(parent, read):
         read.segments['transcript'][0])
 
 
-def write_single_read_fast5(path, read):
+def _write_channel_tracking(parent, prefix, read):
+    ch = parent.require_group(prefix + 'channel_id')
+    ch.attrs['channel_number'] = np.bytes_(read.channel)
+    ch.attrs['digitisation'] = DIGITISATION
+    ch.attrs['offset'] = OFFSET
+    ch.attrs['range'] = RANGE
+    ch.attrs['sampling_rate'] = SAMPLING_RATE
+    tr = parent.require_group(prefix + 'tracking_id')
+    tr.attrs['run_id'] = np.bytes_(read.run_id)
+    tr.attrs['sample_id'] = np.bytes_(read.sample_id)
+
+
+def _write_raw(raw, read):
+    raw.attrs['read_id'] = np.bytes_(read.read_id)
+    raw.attrs['duration'] = read.duration
+    raw.attrs['start_time'] = read.start_time
+    raw.create_dataset('Signal', data=read.raw_dac)
+
+
+def write_single_read_fast5(path, read, basecall='albacore'):
     """Single-read layout: UniqueGlobalKey + Raw/Reads/Read_N."""
     import h5py
     with h5py.File(path, 'w') as f5:
-        raw = f5.create_group('Raw/Reads/Read_1001')
-        raw.attrs['read_id'] = np.bytes_(read.read_id)
-        raw.attrs['duration'] = read.duration
-        raw.attrs['start_time'] = read.start_time
-        raw.create_dataset('Signal', data=read.raw_dac)
-        ch = f5.require_group('UniqueGlobalKey/channel_id')
-        ch.attrs['channel_number'] = np.bytes_(read.channel)
-        ch.attrs['digitisation'] = DIGITISATION
-        ch.attrs['offset'] = OFFSET
-        ch.attrs['range'] = RANGE
-        ch.attrs['sampling_rate'] = SAMPLING_RATE
-        tr = f5.require_group('UniqueGlobalKey/tracking_id')
-        tr.attrs['run_id'] = np.bytes_(read.run_id)
-        tr.attrs['sample_id'] = np.bytes_(read.sample_id)
-        _write_basecall(f5, read)
+        _write_raw(f5.create_group('Raw/Reads/Read_1001'), read)
+        _write_channel_tracking(f5, 'UniqueGlobalKey/', read)
+        _write_basecall(f5, read, basecall)
 
 
-def make_fixture_dir(outdir, n_reads=8, seed=0, **simkw):
-    """A directory of single-read FAST5 files; returns (filename, read_id)
-    entries."""
+def write_multi_read_fast5(path, reads, basecall='albacore'):
+    """Multi-read layout: one read_<id> group a read."""
+    import h5py
+    with h5py.File(path, 'w') as f5:
+        for read in reads:
+            grp = f5.create_group('read_' + read.read_id)
+            _write_raw(grp.create_group('Raw'), read)
+            _write_channel_tracking(grp, '', read)
+            _write_basecall(grp, read, basecall)
+
+
+def make_fixture_dir(outdir, n_reads=8, seed=0, basecall='albacore',
+                     multi_read=False, **simkw):
+    """A directory of FAST5 files, one a read or (``multi_read``) all in
+    one multi-read file, with albacore or guppy basecalls; returns the
+    (filename, read_id) entries."""
     os.makedirs(outdir, exist_ok=True)
     rng = np.random.default_rng(seed)
+    reads = [simulate_read(rng, **simkw) for _ in range(n_reads)]
+    if multi_read:
+        fname = 'batch0.fast5'
+        write_multi_read_fast5(os.path.join(outdir, fname), reads, basecall)
+        return [(fname, read.read_id) for read in reads]
     entries = []
-    for i in range(n_reads):
-        read = simulate_read(rng, **simkw)
+    for i, read in enumerate(reads):
         fname = 'read{:03d}.fast5'.format(i)
-        write_single_read_fast5(os.path.join(outdir, fname), read)
+        write_single_read_fast5(os.path.join(outdir, fname), read, basecall)
         entries.append((fname, read.read_id))
     return entries

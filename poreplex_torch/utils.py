@@ -75,10 +75,13 @@ class StageTimer:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            with self.lock:
-                self.totals[name] += dt
-                self.counts[name] += 1
+            self.add(name, time.perf_counter() - t0)
+
+    def add(self, name, seconds):
+        """One call of a stage that took ``seconds``."""
+        with self.lock:
+            self.totals[name] += seconds
+            self.counts[name] += 1
 
     def snapshot(self):
         with self.lock:

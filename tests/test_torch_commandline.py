@@ -47,8 +47,10 @@ SCALED_FIELDS = ('scaled_mean', 'signal_scale', 'signal_shift')
 SPIKES_RTOL = 1e-5
 # log lines that differ by design: the version and command lines name the
 # package and its argv, the stage timers hold each package's own stages
-# and times, and the port also names its device
-LOG_SKIP = ('Starting poreplex-', 'Command line: ', 'stage ', ' * Device: ')
+# and times, and the port also names its device and its ingest worker
+# count
+LOG_SKIP = ('Starting poreplex-', 'Command line: ', 'stage ', ' * Device: ',
+            ' * Ingest worker processes: ')
 
 
 @contextlib.contextmanager

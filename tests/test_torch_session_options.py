@@ -277,11 +277,16 @@ def test_analysis_start_delay_holds_a_batch(tmp_path, monkeypatch):
     delay = 0.3
     started = []
 
-    def fake_analyze(self, files):
+    def fake_load(self, files):
         started.append(time.monotonic())
+        return files
+
+    def fake_analyze(self, files):
         return [{'filename': name, 'read_id': read_id,
                  'status': 'scaler_signal_too_short'}
                 for name, read_id in files], {}
+    # a batch's analysis starts with its PHASE A on a monitor thread
+    monkeypatch.setattr(ProcessingSession, 'load_batch', fake_load)
     monkeypatch.setattr(ProcessingSession, 'analyze_batch', fake_analyze)
     reads = [types.SimpleNamespace(read_id='read-{}'.format(i))
              for i in range(3)]
