@@ -50,7 +50,22 @@
    resumed over the same reads it must analyse only the reads that were
    not okay, and over the okay reads it must launch no kernel and leave a
    header-only summary; then ``python -m poreplex_torch --version`` must
-   exit with 0; then the same reads from memory through commandline.main
+   exit with 0; then the host stages through the CLI: (a) prints whether
+   albacore, mappy and pysam import here and, for each that does not,
+   commandline.main with --basecall or --align (a generated .mmi) must
+   stop with poreplex-tpu's message and a non-zero exit before any read;
+   (b) on chip_smoke's own stand-ins of albacore (each read's simulated
+   basecall, found by its signal), mappy (a query maps to the contig that
+   holds it), pysam (SAM text) and curses, the same reads from memory
+   through commandline.main with --basecall --align --fastq --dashboard
+   and the main path's options: every kernel launches, every summary row
+   and FASTQ record (U as T) equals the main path's, albacore gets each
+   read that reached PHASE C once with range / digitisation * (raw +
+   offset) in float32 bit for bit, each read with a sequence reaches the
+   aligner once (adapter trimmed), each BAM stream holds exactly its
+   reads' rows, the dashboard's tallies equal the counts; prints reads/s,
+   D:io_AlignmentWriter.process, C:albacore and the dashboard of the
+   finished session; then the same reads from memory through commandline.main
    with -p 1, 2, 4 and 1 in turns, in a process of its own: each run
    launches every kernel and writes the main path's summary rows and
    FASTQ records, -p N starts N ingest worker processes that import
@@ -1070,6 +1085,414 @@ def session_through_cli(config, results, reads, main_outdir, card):
                              '{}'.format(out.returncode, out.stderr))
     log('python -m poreplex_torch --version: {}'.format(
         out.stdout.splitlines()[0]))
+
+
+# ----------------------------------------------------- host stages
+
+HOST_PACKAGES = ('albacore', 'mappy', 'pysam')
+# poreplex-tpu's messages when a host stage's package is missing
+ABSENT_MESSAGES = {
+    '--basecall': 'ERROR: On-the-fly basecalling (--basecall) requires the '
+                  'ONT albacore package.',
+    '--align': 'ERROR: Real-time alignment (--align) requires mappy and '
+               'pysam.',
+}
+# the stand-in albacore's configuration template
+ALBACORE_TEMPLATE = ('[pipeline]\nbasecall_type = 1d\n\n[basecaller]\n'
+                     'model = template_rna_r9.4_70bps.jsn\nmin_qscore = 7\n')
+
+
+def importable(name):
+    import importlib
+    try:
+        importlib.import_module(name)
+        return True
+    except ImportError:
+        return False
+
+
+def write_mmi(path, contigs):
+    """A minimap2 .mmi header (w 10, k 15) naming ``contigs``."""
+    import struct
+    with open(path, 'wb') as f:
+        f.write(b'MMI\2')
+        f.write(struct.pack('<IIIII', 10, 15, 14, len(contigs), 0))
+        for name, seq in contigs.items():
+            f.write(bytes([len(name)]) + name.encode() +
+                    struct.pack('<I', len(seq)))
+    return path
+
+
+class StandIns:
+    """chip_smoke's own stand-ins of albacore, mappy, pysam and curses,
+    put in sys.modules by ``install`` and taken out by ``remove``.
+
+    - albacore's PipelineCore finds each read by its signal, which must be
+      range / digitisation * (raw + offset) in float32 bit for bit, and
+      returns the read's own simulated basecall in albacore's form (DNA,
+      3' to 5'); ``calls`` records (name, read id or None, metadata);
+    - mappy's Aligner maps a query to the contig whose sequence holds it
+      (full length, forward), else to none; ``queries`` records them;
+    - pysam writes SAM text;
+    - curses draws into a list."""
+
+    def __init__(self, reads, contigs, datadir):
+        import types
+        from poreplex_torch import simulate
+        self.reads = reads
+        self.contigs = contigs
+        self.calls = []
+        self.queries = []
+        self.by_signal = {
+            np.asarray(simulate.RANGE / simulate.DIGITISATION *
+                       (read.raw_dac + simulate.OFFSET),
+                       np.float32).tobytes(): read
+            for read in reads.values()}
+        os.makedirs(datadir, exist_ok=True)
+        template = os.path.join(datadir, 'rna.cfg')
+        with open(template, 'w') as f:
+            f.write(ALBACORE_TEMPLATE)
+        stand_ins = self
+
+        class PipelineCore:
+            def __init__(self, configpath, workers):
+                self.results = []
+
+            def pass_data(self, name, rawdata, meta):
+                read = None
+                if isinstance(rawdata, np.ndarray) and \
+                        rawdata.dtype == np.float32:
+                    read = stand_ins.by_signal.get(rawdata.tobytes())
+                stand_ins.calls.append(
+                    (name, read and read.read_id, dict(meta)))
+                self.results = [] if read is None else [{
+                    'sequence': read.sequence.replace('U', 'T')[::-1],
+                    'qstring': read.qstring[::-1],
+                    'mean_qscore': simulate.MEAN_QSCORE,
+                    'events': read.events.copy()}]
+
+            def finish_all_jobs(self):
+                pass
+
+            def get_results(self):
+                results, self.results = self.results, []
+                return results
+
+        class Hit:
+            def __init__(self, ctg, r_st, qlen):
+                self.ctg, self.r_st, self.q_st, self.q_en = ctg, r_st, 0, qlen
+                self.strand, self.mapq, self.NM = 1, 60, 0
+                self.cigar_str = '{}M'.format(qlen)
+                self.is_primary = True
+
+        class Aligner:
+            def __init__(self, indexfile):
+                pass
+
+            def map(self, seq):
+                stand_ins.queries.append(seq)
+                for name, contig in stand_ins.contigs.items():
+                    at = contig.find(seq)
+                    if at >= 0:
+                        return iter([Hit(name, at, len(seq))])
+                return iter([])
+
+        class AlignmentFile:
+            def __init__(self, path, mode, header):
+                self.header = header
+                self.file = open(path, 'w')
+                for sq in header['SQ']:
+                    self.file.write('@SQ\tSN:{SN}\tLN:{LN}\n'.format(**sq))
+
+            def write(self, segment):
+                self.file.write(segment + '\n')
+
+            def close(self):
+                self.file.close()
+
+        class Screen:
+            def __getattr__(self, name):
+                return lambda *args: None
+
+            def getch(self):
+                return -1
+
+            def getmaxyx(self):
+                return 24, 100
+
+        def package(name, **attrs):
+            module = types.ModuleType(name)
+            module.__dict__.update(attrs)
+            return module
+        albacore = package('albacore', __version__='2.3.4', MIN_QSCORE=7,
+                           __path__=[])
+        self.modules = {
+            'albacore': albacore,
+            'albacore.config_utils': package(
+                'albacore.config_utils',
+                get_barcoding_options=lambda *args: {}),
+            'albacore.path_utils': package(
+                'albacore.path_utils',
+                get_default_path=lambda default, argv: datadir),
+            'albacore.config_selector': package(
+                'albacore.config_selector',
+                choose_config=lambda path, flowcell, kit: (template, 'rna')),
+            'albacore.pipeline_core': package(
+                'albacore.pipeline_core', PipelineCore=PipelineCore),
+            'mappy': package('mappy', Aligner=Aligner, revcomp=lambda seq:
+                             seq.translate(str.maketrans('ACGT', 'TGCA'))[
+                                 ::-1]),
+            'pysam': package(
+                'pysam', AlignmentFile=AlignmentFile,
+                AlignedSegment=package(
+                    'AlignedSegment',
+                    fromstring=lambda line, header: line)),
+            'curses': package(
+                'curses', initscr=Screen, noecho=lambda: None,
+                cbreak=lambda: None, nocbreak=lambda: None,
+                echo=lambda: None, endwin=lambda: None, KEY_LEFT=260,
+                KEY_RIGHT=261, A_REVERSE=0),
+        }
+        for name, module in self.modules.items():
+            if '.' in name:
+                setattr(albacore, name.split('.')[1], module)
+        self.saved = {}
+
+    def install(self):
+        self.saved = {name: sys.modules.get(name) for name in self.modules}
+        sys.modules.update(self.modules)
+
+    def remove(self):
+        for name, module in self.saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def refusals(source, tmp, mmi):
+    """Stage (a): with each host-stage package that does not import here,
+    commandline.main stops --basecall or --align with poreplex-tpu's
+    message and a non-zero exit, before any read is read."""
+    import contextlib
+    import io
+    present = {name: importable(name) for name in HOST_PACKAGES}
+    log('host stages: importable on this host: {}'.format(json.dumps(
+        present)))
+    options = []
+    if not present['albacore']:
+        options.append(['--basecall'])
+    if not (present['mappy'] and present['pysam']):
+        options.append(['--align', mmi])
+    for i, option in enumerate(options):
+        indir = os.path.join(tmp, 'refused-in')
+        outdir = os.path.join(tmp, 'refused-{}'.format(i))
+        os.makedirs(indir, exist_ok=True)
+        err = io.StringIO()
+        code = None
+        with contextlib.redirect_stderr(err):
+            try:
+                run_cli(['-i', indir, '-o', outdir, '-y', '-q'] + option,
+                        source)
+            except SystemExit as exc:
+                code = exc.code
+        last = (err.getvalue().strip().splitlines() or [''])[-1]
+        from poreplex_torch import kernels
+        if code in (0, None) or last != ABSENT_MESSAGES[option[0]] or \
+                any(kernels.launches.values()) or os.path.exists(
+                    os.path.join(outdir, 'sequencing_summary.txt')):
+            raise AssertionError('{} without its package: exit {}, {!r}'
+                                 .format(option[0], code, last))
+        log('host stages: {} stops with exit {} before any read: {}'.format(
+            option[0], code, last))
+    if not options:
+        log('host stages: every package imports here; no refusal to run')
+
+
+def expected_alignment(results, contigs):
+    """(the aligner's queries, {barcode: (mapped, unmapped, failed)}) the
+    main path's reports give: a read with a sequence is mapped, its 3'
+    adapter trimmed, in the DNA alphabet."""
+    queries = []
+    tallies = {}
+    for r in results:
+        counts = tallies.setdefault(r.get('barcode'), [0, 0, 0])
+        if r.get('sequence') is None:
+            counts[2] += 1
+            continue
+        seq, _, adapter = r['sequence']
+        query = (seq[:-adapter] if adapter > 0 else seq).replace('U', 'T')
+        queries.append(query)
+        counts[0 if any(query in c for c in contigs.values()) else 1] += 1
+    return queries, {k: tuple(v) for k, v in tallies.items()}
+
+
+def host_stages_through_cli(config, results, reads, main_outdir, card):
+    """Stage (a), refusals, then (b): the main path's reads from memory
+    through commandline.main on the card with --basecall, --align,
+    --fastq and --dashboard (and the main path's options) on chip_smoke's
+    stand-ins. Every summary row and FASTQ record equals the main path's;
+    albacore gets each read that reached PHASE C once, its signal bit for
+    bit; every read with a sequence reaches the aligner once, adapter
+    trimmed; each BAM stream holds exactly its reads' rows; the dashboard's
+    tallies equal the counts; every kernel launches."""
+    import contextlib
+    import io
+    from poreplex_torch import dashboard, simulate
+    from poreplex_torch.pipeline.session import ProcessingSession
+    from poreplex_torch.pipeline.source import MemorySource
+    source = MemorySource(list(reads.values()))
+    # every other read with a sequence lies in a contig
+    contigs = {}
+    for i, r in enumerate(results):
+        if r.get('sequence') is not None and i % 2 == 0:
+            seq, _, adapter = r['sequence']
+            query = (seq[:-adapter] if adapter > 0 else seq)
+            contigs['tx{}|{}'.format(i, r['read_id'][:8])] = \
+                'GATTACA' + query.replace('U', 'T') + 'CCGG'
+    with tempfile.TemporaryDirectory() as tmp:
+        mmi = write_mmi(os.path.join(tmp, 'ref.mmi'), contigs)
+        refusals(source, tmp, mmi)
+
+        stand_ins = StandIns(reads, contigs, os.path.join(tmp, 'albacore'))
+        log('host stages: stand-ins of {} installed (chip_smoke\'s own, not '
+            'the packages)'.format(', '.join(sorted(stand_ins.modules))))
+        sessions = []
+        start_dashboard = ProcessingSession.start_dashboard
+
+        def keep_session(sess):
+            sessions.append(sess)
+            return start_dashboard(sess)
+        indir, outdir = os.path.join(tmp, 'in'), os.path.join(tmp, 'out')
+        os.makedirs(indir)
+        argv = ['-i', indir, '-o', outdir, '-y', '--barcoding',
+                '--barcoding-quality-filter', str(BARCODE_PHRED), '--polya',
+                '--filter-chimera', '--trim-adapter', '--batch-size',
+                str(BATCH), '--device-batch-size', str(BATCH),
+                '--mesh-shape', '1', '--basecall', '--align', mmi, '--fastq',
+                '--dashboard']
+        printed = io.StringIO()
+        stand_ins.install()
+        ProcessingSession.start_dashboard = keep_session
+        try:
+            with contextlib.redirect_stdout(printed):
+                result, wall_s, launches, stages = run_cli(argv, source)
+        finally:
+            ProcessingSession.start_dashboard = start_dashboard
+            stand_ins.remove()
+        if result is None or len(sessions) != 1:
+            raise AssertionError('the host-stage session did not finish '
+                                 '(dashboards started: {})'.format(
+                                     len(sessions)))
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError('the host-stage session never launched: '
+                                 '{}'.format(missing))
+        log('host stages: {} reads, {:.1f} reads/s ({:.3f} s from main '
+            'entered to main returned); {}'.format(
+                N_READS, N_READS / wall_s, wall_s, card))
+        log('host stages: launches', json.dumps(launches))
+        log('host stages: D:io_AlignmentWriter.process {}, C:albacore {}, '
+            'C:events_trim {}'.format(*(
+                json.dumps(stages.get(name)) for name in (
+                    'D:io_AlignmentWriter.process', 'C:albacore',
+                    'C:events_trim'))))
+
+        # the same rows and records as the main path's; albacore's calls
+        # are RNA (U), the simulated files' basecalls are written in T
+        header, rows = summary_rows(outdir)
+        ref_header, ref_rows = summary_rows(main_outdir)
+        fastq, ref_fastq = fastq_records(outdir), fastq_records(main_outdir)
+        in_t = {read_id: (path, [lines[0], lines[1].replace('U', 'T')] +
+                          lines[2:])
+                for read_id, (path, lines) in fastq.items()}
+        for what, got, ref in (('summary rows', (header, rows),
+                                (ref_header, ref_rows)),
+                               ('FASTQ records (U as T)', in_t, ref_fastq)):
+            if got != ref:
+                raise AssertionError('{} with --basecall differ from the '
+                                     'main path\'s: {} against {}'.format(
+                                         what, str(got)[:300],
+                                         str(ref)[:300]))
+        # albacore: each read that reached PHASE C once, under its file's
+        # name, its signal found bit for bit
+        called = sorted(read_id for _, read_id, _ in stand_ins.calls)
+        with_sequence = sorted(r['read_id'] for r in results
+                               if r.get('sequence') is not None)
+        if called != with_sequence or any(
+                name != 'simulated' for name, _, _ in stand_ins.calls):
+            raise AssertionError('albacore got {} reads ({} not found by '
+                                 'their signal), {} have sequences'.format(
+                                     len(called), called.count(None),
+                                     len(with_sequence)))
+        for _, read_id, meta in stand_ins.calls:
+            read = reads[read_id]
+            if meta != {'channel_id': read.channel,
+                        'start_time': read.start_time,
+                        'duration': read.duration,
+                        'sampling_rate': simulate.SAMPLING_RATE}:
+                raise AssertionError('albacore metadata of {}: {}'.format(
+                    read_id, meta))
+        # the aligner: every read with a sequence once, adapter trimmed
+        queries, tallies = expected_alignment(results, contigs)
+        if sorted(stand_ins.queries) != sorted(queries):
+            raise AssertionError('the aligner got {} queries for {} reads '
+                                 'with sequences'.format(
+                                     len(stand_ins.queries), len(queries)))
+        # each BAM stream holds exactly its reads' rows
+        streams = {}
+        for row in rows.values():
+            fields = dict(zip(header.split('\t'), row.split('\t')))
+            if fields['read_id'] in fastq:
+                streams.setdefault(os.path.join(
+                    fields['label'], fields['barcode']), set()).add(
+                        fields['read_id'])
+        bam_reads = 0
+        for name in config['output_layout'].values():
+            with open(os.path.join(outdir, 'bam', name + '.bam')) as f:
+                sam = [line.split('\t') for line in f.read().splitlines()
+                       if not line.startswith('@')]
+            names = [fields[0] for fields in sam]
+            if sorted(names) != sorted(streams.get(name, ())):
+                raise AssertionError('bam/{}.bam holds {} rows for {} '
+                                     'reads'.format(name, len(names),
+                                                    len(streams.get(name,
+                                                                    ()))))
+            for fields in sam:
+                mapped = fields[2] != '*'
+                if fields[1] != ('0' if mapped else '4') or \
+                        fields[9] != fastq[fields[0]][1][1].replace(
+                            'U', 'T') or \
+                        (mapped and fields[9] not in contigs[fields[2]]):
+                    raise AssertionError('bam/{}.bam: {}'.format(
+                        name, fields[:6]))
+            bam_reads += len(names)
+        # the dashboard's tallies
+        view = sessions[0].dashboard
+        got = {group: (view.stats.total[group], view.stats.unmapped[group],
+                       view.stats.failed[group])
+               for group in set(tallies) | set(view.stats.groups())}
+        if got != tallies:
+            raise AssertionError('dashboard tallies {} for counts {}'.format(
+                got, tallies))
+        # the group with the most mapped reads on the screen
+        groups = view.stats.groups()
+        view.selected_group = max(range(len(groups)),
+                                  key=lambda i: view.stats.total[groups[i]])
+        snapshot = dashboard.render_dashboard(view.snapshot_state(), 100, 16)
+    log('host stages: {} summary rows and {} FASTQ records (U as T) equal '
+        'to the main path\'s; albacore called {} times, signals bit for '
+        'bit; {} queries; {} BAM rows in {} streams; tallies {} (barcode: mapped, '
+        'unmapped, failed); {} lines printed by the CLI'.format(
+            len(rows), len(fastq), len(stand_ins.calls), len(queries),
+            bam_reads, len(config['output_layout']),
+            json.dumps({str(k): v for k, v in sorted(
+                tallies.items(), key=lambda kv: str(kv[0]))}),
+            len(printed.getvalue().splitlines())))
+    log('host stages: the dashboard of the finished session; {}'.format(
+        card))
+    for row in snapshot:
+        log('  | ' + row)
 
 
 # the ingest turns: -p of each run, in turns, each from a fresh session
@@ -2370,6 +2793,7 @@ def main(argv):
         profile_batch(analyzer, list(reads.values())[:BATCH])
         del analyzer
         session_through_cli(config, results, reads, outdir, card)
+        host_stages_through_cli(config, results, reads, outdir, card)
         check_ingest_turns(reads, outdir, card)
         check_every_card(config)
         check_mesh(config, list(reads.values()), card)

@@ -2,14 +2,14 @@
 on the CUDA device unless ``--cpu`` is given.
 
 Console entry point: ``poreplex-torch`` (also ``python -m poreplex_torch``).
-The TPU knobs (``--pallas``, ``--prewarm``) have no counterpart. The options
-of stages the port does not carry yet (``--basecall``, ``--align``) are
-accepted and stop the run with an error naming the slice they wait for;
-``--dashboard`` is turned off, as in poreplex-tpu, because it needs
-``--align``. ``--mesh-shape`` spreads each batch over that many cards of
-this process; ``--num-nodes``, ``--node-rank`` and ``--coordinator`` make
-this process one rank of several, each analysing its own share of the
-reads (parallel/distributed.py).
+The TPU knobs (``--pallas``, ``--prewarm``) have no counterpart.
+``--basecall`` needs ONT's albacore and ``--align`` needs mappy and pysam:
+without them the run stops with poreplex-tpu's message before any read is
+read. ``--dashboard`` is turned off, as in poreplex-tpu, unless
+``--align`` is given. ``--mesh-shape`` spreads each batch over that many
+cards of this process; ``--num-nodes``, ``--node-rank`` and
+``--coordinator`` make this process one rank of several, each analysing
+its own share of the reads (parallel/distributed.py).
 """
 
 import argparse
@@ -19,7 +19,7 @@ import shutil
 import sys
 
 from . import __version__
-from .config import LATER_SLICES, build_config, ingest_process_count
+from .config import build_config, ingest_process_count
 from .utils import errx, errprint
 
 VERSION_STRING = """\
@@ -56,13 +56,6 @@ OUTPUT_SUBDIRS = (
     ('minimap2_index', 'bam'),
     ('dump_adapter_signals', 'adapter-dumps'),
     ('dump_basecalls', 'events'),
-)
-
-# options of stages that later slices of the port carry: (argument, flag,
-# the LATER_SLICES key naming the slice)
-REFUSED_OPTIONS = (
-    ('basecall', '--basecall', 'albacore_onthefly'),
-    ('align', '--align', 'minimap2_index'),
 )
 
 
@@ -140,6 +133,30 @@ def show_configuration(config, output):
     _("")
 
 
+def test_optional_features(config):
+    """Stop when a package that an asked-for stage needs is missing;
+    with on-the-fly basecalling, write albacore's configuration into the
+    output directory."""
+    if config['albacore_onthefly']:
+        from .basecall_albacore import albacore_available, prepare_albacore
+        if not albacore_available():
+            errx('ERROR: On-the-fly basecalling (--basecall) requires the '
+                 'ONT albacore package.')
+        config['albacore_configuration'] = os.path.join(
+            config['outputdir'], 'albacore-configuration.cfg')
+        config['albacore_version'] = prepare_albacore(
+            config['albacore_configuration'], config['flowcell'],
+            config['kit'])
+
+    if config['minimap2_index']:
+        try:
+            import mappy  # noqa: F401
+            import pysam  # noqa: F401
+        except ImportError:
+            errx('ERROR: Real-time alignment (--align) requires mappy and '
+                 'pysam.')
+
+
 def test_inputs_and_outputs(config):
     if not os.path.isdir(config['inputdir']):
         errx('ERROR: Cannot open the input directory {}.'.format(
@@ -150,6 +167,13 @@ def test_inputs_and_outputs(config):
         except OSError:
             errx('ERROR: Failed to create the output directory {}.'.format(
                 config['outputdir']))
+    if config['minimap2_index']:
+        from .alignment import check_minimap2_index
+        try:
+            check_minimap2_index(config['minimap2_index'])
+        except Exception:
+            errx('ERROR: Could not load a minimap2 index from {}.'.format(
+                config['minimap2_index']))
 
 
 def fix_options(config):
@@ -160,13 +184,6 @@ def fix_options(config):
         errprint('')
 
 
-def refuse_later_slices(args):
-    for name, flag, key in REFUSED_OPTIONS:
-        if getattr(args, name) not in (None, False):
-            errx('ERROR: {} is not ported yet; it waits for {}.'.format(
-                flag, LATER_SLICES[key]))
-
-
 def config_options(args):
     """The run options of the command line, as build_config takes them."""
     return dict(
@@ -175,6 +192,7 @@ def config_options(args):
         live=args.live,
         analysis_start_delay=args.live_delay if args.live else 0,
         dashboard=args.dashboard,
+        albacore_onthefly=args.basecall,
         contig_aliases=args.contig_aliases,
         tmpdir=args.tmpdir,
         barcoding=args.barcoding,
@@ -212,7 +230,6 @@ def main(args, source=None):
     if not args.quiet:
         show_banner()
 
-    refuse_later_slices(args)
     options = config_options(args)
     fix_options(options)
     try:
@@ -224,14 +241,15 @@ def main(args, source=None):
     test_inputs_and_outputs(config)
     create_output_directories(config)
 
-    # every rank joins the process group before its session starts
     from .parallel import distributed
-    try:
-        distributed.initialize_from_config(config)
-    except ValueError as exc:
-        errx('ERROR: {}'.format(exc))
     logger, handler = init_logging(config)
     try:
+        test_optional_features(config)
+        # every rank joins the process group before its session starts
+        try:
+            distributed.initialize_from_config(config)
+        except ValueError as exc:
+            errx('ERROR: {}'.format(exc))
         logger.info('Starting poreplex-torch version {}'.format(__version__))
         logger.info('Command line: ' + ' '.join(sys.argv))
 
@@ -297,13 +315,11 @@ def build_parser():
                        help='output poly(A) tail length measurements')
     group.add_argument('--basecall', default=False, action='store_true',
                        help='call the ONT albacore for basecalling '
-                            'on-the-fly (not ported yet: stops with an '
-                            'error)')
+                            'on-the-fly')
     group.add_argument('--align', default=None, type=str,
                        metavar='INDEXFILE',
                        help='align basecalled reads using minimap2 and '
-                            'create BAM files (not ported yet: stops with '
-                            'an error)')
+                            'create BAM files')
 
     group = parser.add_argument_group('Live Mode')
     group.add_argument('--live', default=False, action='store_true',
@@ -334,8 +350,7 @@ def build_parser():
 
     group = parser.add_argument_group('User Interface')
     group.add_argument('--dashboard', default=False, action='store_true',
-                       help='show the full screen dashboard (turned off: '
-                            'it needs --align)')
+                       help='show the full screen dashboard')
     group.add_argument('--contig-aliases', default=None, metavar='FILE',
                        type=str,
                        help='path to a tab-separated text file for aliases '

@@ -2,9 +2,7 @@
 
 The preset ``presets/rna-r941.json`` is the JSON form of poreplex-tpu's
 ``rna-r941.yaml`` (the same numeric knobs and HMM specifications); JSON
-because the port's runtime has no YAML parser. Options that belong to
-pipeline stages the port does not carry yet (``LATER_SLICES``) raise
-``NotImplementedError`` instead of being ignored.
+because the port's runtime has no YAML parser.
 """
 
 import copy
@@ -106,24 +104,20 @@ DEFAULT_OPTIONS = dict(
     num_nodes=None,          # ranks of a multi-process run
     node_rank=None,
     coordinator=None,        # HOST:PORT of rank 0's process-group store
-    # stages of later slices of the port: must stay off
-    albacore_onthefly=False,
+    albacore_onthefly=False,  # basecall each read with albacore (--basecall)
     dashboard=False,
-    minimap2_index=None,
+    minimap2_index=None,     # .mmi to align the basecalls to (--align)
 )
-
-# option -> the part of the port that will carry it
-LATER_SLICES = {
-    'albacore_onthefly': 'the albacore basecalling slice',
-    'dashboard': 'the alignment slice',
-    'minimap2_index': 'the alignment slice',
-}
 
 
 def ingest_process_count(config):
     """PHASE A's worker processes: ``ingest_processes``, where 'auto' is
     ``parallel`` when that is 2 or more and none otherwise (the batches
-    are then loaded in the analyzer's process)."""
+    are then loaded in the analyzer's process). None with on-the-fly
+    basecalling, as in poreplex-tpu: albacore takes each read's signal
+    in the analyzer's process."""
+    if config['albacore_onthefly']:
+        return 0
     count = config['ingest_processes']
     if count == 'auto':
         count = config['parallel'] if config['parallel'] >= 2 else 0
@@ -157,12 +151,6 @@ def build_config(inputdir, outputdir, preset='', **options):
         if key not in config:
             raise KeyError('Unknown config option: {}'.format(key))
         config[key] = value
-    for key, where in LATER_SLICES.items():
-        value = config.get(key)
-        if value:
-            raise NotImplementedError(
-                '{}={!r} is not ported yet; it waits for {}'.format(
-                    key, value, where))
     config['device'] = str(resolve_device(config['device']))
 
     (config['label_names'], config['barcode_names'],

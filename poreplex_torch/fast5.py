@@ -15,7 +15,7 @@ import os.path
 import numpy as np
 
 __all__ = ['get_read_ids', 'Fast5Reader', 'Fast5FilePool', 'EventTable',
-           'DuplicatedReadError', 'find_libhdf5']
+           'DuplicatedReadError', 'find_libhdf5', 'dac_to_pa', 'KeptRead']
 
 # the sonames a native FAST5 reader dlopens, in the order poreplex-tpu's
 # reader tries them
@@ -124,6 +124,35 @@ def get_read_ids(filename, basedir=None):
                 if node.startswith('read_')]
 
 
+def dac_to_pa(raw, rng, digitisation, offset):
+    """A raw DAC signal in picoamperes, float32: rng / digitisation *
+    (raw + offset), evaluated in float64 as poreplex-tpu's
+    Fast5Reader.get_raw_data does, so that albacore gets the same array
+    bit for bit."""
+    return np.asarray(rng / digitisation * (raw + offset), dtype=np.float32)
+
+
+class KeptRead:
+    """A read's raw DAC signal with its reader's calibration and the
+    metadata albacore takes (channel, start time in samples, duration,
+    sampling rate), kept past PHASE A, when the reader is closed;
+    ``get_raw_data`` is the reader's."""
+
+    def __init__(self, reader, raw):
+        self.raw = raw
+        self.range = reader.range
+        self.digitisation = reader.digitisation
+        self.offset = reader.offset
+        self.channel_number = reader.channel_number
+        self.start_time = reader.start_time
+        self.duration = reader.duration
+        self.sampling_rate = reader.sampling_rate
+
+    def get_raw_data(self):
+        return dac_to_pa(self.raw, self.range, self.digitisation,
+                         self.offset)
+
+
 def _decode(value):
     return value.decode() if isinstance(value, bytes) else str(value)
 
@@ -213,9 +242,8 @@ class Fast5Reader:
 
     def get_raw_data(self, start=None, end=None):
         """Raw signal slice in picoamperes."""
-        raw = self.get_raw_dac(start, end)
-        return np.asarray(self.range / self.digitisation * (raw + self.offset),
-                          dtype=np.float32)
+        return dac_to_pa(self.get_raw_dac(start, end), self.range,
+                         self.digitisation, self.offset)
 
     def get_basecall(self, analysis_group='Basecall_1D', columns=None):
         """The newest basecall analysis with its event table, or None.

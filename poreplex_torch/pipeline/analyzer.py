@@ -3,10 +3,12 @@ and status lattice, run as batch phases:
 
   A  host read load from the session's source (metadata, raw signal
      pooled to pA frames, basecall: pipeline/ingest.py), in this process
-     or over ingest worker processes
+     or over ingest worker processes; with on-the-fly basecalling the
+     raw signal is kept in place of the file's basecall
   B  device stage 1: scaler + QC + scaling + Viterbi extents + demux net
-  C  host: segments, gates, basecall events and adapter trimming; the
-     poly(A) rounds and the unsplit-read windows on the device
+  C  host: segments, gates, basecall events (or albacore's basecall of
+     the kept signal) and adapter trimming; the poly(A) rounds and the
+     unsplit-read windows on the device
   D  demux resolution from the stage-1 probabilities
   E  report dicts, and the adapter-signal and basecalled-event dumps
 
@@ -19,6 +21,7 @@ over them; the per-read results are those of one device.
 """
 
 import csv
+import os
 import sys
 import traceback
 
@@ -84,6 +87,11 @@ class BatchAnalyzer:
         if config['barcoding']:
             self.demux_threshold = self.engine.demux.score_threshold(
                 config['barcoding_quality_filter'])
+        self.albacore = None
+        if config['albacore_onthefly']:
+            from ..basecall_albacore import AlbacoreBroker
+            self.albacore = AlbacoreBroker(config['albacore_configuration'],
+                                           self.kmersize)
         # PHASE A's worker processes, started here (inside the session's
         # S:build_analyzer) so that the first batch does not wait for them
         self.ingest_params = ingest_params(config, self.engine.scaler)
@@ -163,6 +171,7 @@ class BatchAnalyzer:
         rec.calib = p.get('calib', rec.calib)
         rec.bcall = p.get('bcall')
         rec.bcall_error = p.get('bcall_error')
+        rec.kept_read = p.get('kept_read')
         records.append(rec)
 
     # ------------------------------------------------------------------
@@ -322,16 +331,10 @@ class BatchAnalyzer:
 
     # ------------------------------------------------------------------
     def _load_events(self, rec):
-        if rec.bcall_error is not None:
-            raise rec.bcall_error
-        bcall = rec.bcall
-        if bcall is None:
-            raise SignalAnalysisError('not_basecalled')
-        rec.sequence_length = bcall['sequence_length']
-        rec.mean_qscore = bcall['mean_qscore']
-        rec.num_events = bcall['num_events']
-        rec.sequence = (bcall['sequence'], bcall['qstring'], 0)
-        events = bcall['events']
+        if self.albacore is not None:
+            events = self._call_albacore(rec)
+        else:
+            events = self._load_fast5_events(rec)
 
         scale, shift = rec.scaling_params
         events['scaled_mean'] = events['mean'] * float(scale) + float(shift)
@@ -341,6 +344,35 @@ class BatchAnalyzer:
         events['end'] = events['start'] + duration
         rec.events = events
         return events
+
+    def _load_fast5_events(self, rec):
+        if rec.bcall_error is not None:
+            raise rec.bcall_error
+        bcall = rec.bcall
+        if bcall is None:
+            raise SignalAnalysisError('not_basecalled')
+        rec.sequence_length = bcall['sequence_length']
+        rec.mean_qscore = bcall['mean_qscore']
+        rec.num_events = bcall['num_events']
+        rec.sequence = (bcall['sequence'], bcall['qstring'], 0)
+        return bcall['events']
+
+    def _call_albacore(self, rec):
+        """albacore's basecall of the kept signal, timed as
+        ``C:albacore``. The read is named by its file's name without the
+        extension, as in poreplex-tpu (not by its read id)."""
+        kept = rec.kept_read
+        with trace('C:albacore'):
+            bcall = self.albacore.basecall(
+                kept.get_raw_data(), kept,
+                os.path.basename(rec.filename).rsplit('.', 1)[0])
+        if bcall is None:
+            raise SignalAnalysisError('not_basecalled')
+        rec.sequence_length = bcall['sequence_length']
+        rec.mean_qscore = bcall['mean_qscore']
+        rec.num_events = bcall['called_events']
+        rec.sequence = (bcall['sequence'], bcall['qstring'], 0)
+        return bcall['events']
 
     def _scaled_pooled_signal(self, rec, scaling):
         scale, shift = scaling

@@ -8,7 +8,8 @@ would take the lock from the threads that drive the device. Worker
 processes read in parallel: each gets the session's source once, when it
 starts, opens every read through ``source.opener()`` and returns compact
 payloads (the pooled pA frames, the raw DAC when poly(A) is measured, the
-basecall). Everything that touches the device stays in the analyzer's
+basecall, or with on-the-fly basecalling the raw DAC and what albacore
+takes with it). Everything that touches the device stays in the analyzer's
 process. A worker reads a ``DirectorySource``'s FAST5 through the native
 reader (``fast5_native.py``) first and through h5py for each read that
 reader leaves (guppy Move tables, other layouts, any native error); a
@@ -31,7 +32,7 @@ import traceback
 
 import numpy as np
 
-from .. import fast5_native
+from .. import fast5, fast5_native
 from ..utils import pack_unhandled_exception
 from .source import DirectorySource
 
@@ -63,6 +64,9 @@ def ingest_params(config, scaler):
         pooled_length=scaler.pooled_length,
         # poly(A) windows are cut from the raw signal
         keep_raw=bool(config['measure_polya']),
+        # albacore basecalls each read in PHASE C: the file's basecall is
+        # not read
+        albacore=bool(config['albacore_onthefly']),
         event_columns=None if config['dump_basecalls'] else EVENT_COLUMNS)
 
 
@@ -77,7 +81,9 @@ def read_payload(params, reader, timer):
     'meta' and, for a read that goes on, its pooled pA frames, the scaler
     head's length in them, the raw signal when poly(A) is measured, and
     its basecall or the exception reading it raised ('bcall_error',
-    raised in PHASE C so that stage-1 statuses keep their precedence).
+    raised in PHASE C so that stage-1 statuses keep their precedence);
+    with on-the-fly basecalling, a fast5.KeptRead ('kept_read') in place
+    of the basecall.
     ``timer(stage)`` is a context manager that times a stage."""
     p = {'status': 'okay', 'stopped': False,
          'meta': (reader.sampling_rate, reader.duration,
@@ -108,6 +114,9 @@ def read_payload(params, reader, timer):
                 raw * np.float32(reader.pa_scale) +
                 np.float32(reader.pa_scale * reader.offset), np.float32)
     p['head_len'] = min(params['pooled_length'], len(p['pooled']))
+    if params['albacore']:
+        p['kept_read'] = fast5.KeptRead(reader, raw)
+        return p
 
     try:
         with timer('A:bcall'):

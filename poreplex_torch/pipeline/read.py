@@ -45,6 +45,7 @@ class ReadRecord:
         self.events = None               # EventTable of basecalled events
         self.bcall = None                # basecall dict read at ingest
         self.bcall_error = None          # deferred basecall read failure
+        self.kept_read = None            # fast5.KeptRead for albacore
 
     # ---- status lattice ----
     def set_status(self, newstatus, stop=False):
@@ -102,6 +103,7 @@ class ReadRecord:
         self.pooled = None
         self.events = None
         self.bcall = None
+        self.kept_read = None
 
     def report(self):
         """Result dict in upstream poreplex's format."""

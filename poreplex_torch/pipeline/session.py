@@ -8,8 +8,11 @@ processes with ``-p``) runs on a monitor thread while the batch before it
 computes; the device phases run on one compute thread, one batch at a
 time and in scan order, and a batch's writes run on one writer thread
 while the next batch computes, so the written order is the scan order
-too. A batch starts loading once the batch two before it has computed,
-so at most two batches' reads are held at once. Every read that
+too; with ``--align`` the writer thread also maps the batch's basecalls
+into BAM files (alignment.py), and their tallies feed the dashboard
+(dashboard.py), which draws on the loop. A batch starts loading once the
+batch two before it has computed, so at most two batches' reads are held
+at once. Every read that
 finishes ``okay`` is appended to ``OUTDIR/.processed-reads``; with
 ``resume`` the reads listed there are skipped, and in live mode a read
 found again is not queued twice. The reads come from the input
@@ -91,7 +94,9 @@ class ProcessingSession:
         self.fastq_writer = self.fast5_writer = None
         self.npreaddb_writer = self.seqsummary_writer = None
         self.dump_writer = None
+        self.alignment_writer = None
         self.finalsummary_tracker = None
+        self.dashboard = None
 
         self.manifest_path = os.path.join(config['outputdir'],
                                           '.processed-reads')
@@ -130,6 +135,13 @@ class ProcessingSession:
             config['label_names'], config['barcode_names'])
         if config['dump_adapter_signals'] or config['dump_basecalls']:
             self.dump_writer = DumpWriter(config)
+        if config['minimap2_index']:
+            self.show_message('==> Loading a minimap2 index file')
+            from ..alignment import AlignmentWriter
+            self.alignment_writer = AlignmentWriter(
+                config['minimap2_index'],
+                os.path.join(config['outputdir'], 'bam', '{}.bam'),
+                config['output_layout'])
         return self
 
     def __exit__(self, *args):
@@ -141,12 +153,12 @@ class ProcessingSession:
             self.analyzer.close()
         for writer in (self.fastq_writer, self.fast5_writer,
                        self.npreaddb_writer, self.seqsummary_writer,
-                       self.dump_writer):
+                       self.alignment_writer, self.dump_writer):
             if writer is not None:
                 writer.close()
         self.fastq_writer = self.fast5_writer = None
         self.npreaddb_writer = self.seqsummary_writer = None
-        self.dump_writer = None
+        self.alignment_writer = self.dump_writer = None
         if self.manifest_file is not None:
             self.manifest_file.close()
             self.manifest_file = None
@@ -222,20 +234,25 @@ class ProcessingSession:
 
     def write_results(self, batchid, results, aux):
         """On the writer thread: every enabled sink, each timed as
-        ``D:io_<sink method>``."""
-        calls = []
-        if self.fastq_writer is not None:
-            calls.append((self.fastq_writer.write_sequences, results))
-        if self.fast5_writer is not None:
-            calls.append((self.fast5_writer.transfer_reads, results))
-        if self.npreaddb_writer is not None:
-            calls.append((self.npreaddb_writer.write_sequences, results))
-        if self.dump_writer is not None:
-            calls.append((self.dump_writer.write_aux, batchid, aux))
-        calls.append((self.seqsummary_writer.write_results, results))
-        for fn, *args in calls:
+        ``D:io_<sink method>``. Returns the alignment writer's tallies, or
+        None without one."""
+        def timed(fn, *args):
             with GLOBAL_TIMER.stage('D:io_' + fn.__qualname__):
-                fn(*args)
+                return fn(*args)
+
+        if self.fastq_writer is not None:
+            timed(self.fastq_writer.write_sequences, results)
+        if self.fast5_writer is not None:
+            timed(self.fast5_writer.transfer_reads, results)
+        if self.npreaddb_writer is not None:
+            timed(self.npreaddb_writer.write_sequences, results)
+        rescounts = None
+        if self.alignment_writer is not None:
+            rescounts = timed(self.alignment_writer.process, results)
+        if self.dump_writer is not None:
+            timed(self.dump_writer.write_aux, batchid, aux)
+        timed(self.seqsummary_writer.write_results, results)
+        return rescounts
 
     async def run_process_batch(self, batchid, files):
         # taken before the first await, so in the order of submission
@@ -291,9 +308,11 @@ class ProcessingSession:
                 self._record_processed(newly_done)
 
             if nd_results:
-                await self.loop.run_in_executor(
+                rescounts = await self.loop.run_in_executor(
                     self.executor_io, self.write_results, batchid,
                     nd_results, aux)
+                if self.dashboard is not None and rescounts is not None:
+                    self.dashboard.feed_mapped(rescounts)
                 self.finalsummary_tracker.feed_results(nd_results)
 
             # a stream of reads without basecalls: stop early
@@ -509,6 +528,20 @@ class ProcessingSession:
                          'reads)'.format(spin, self.reads_processed,
                                          self.reads_queued, self.reads_found))
 
+    def start_dashboard(self):
+        """The dashboard on the session's loop; contig aliases are read
+        when alignment is on."""
+        from .. import dashboard
+        if self.config['contig_aliases'] and self.config['minimap2_index']:
+            aliases = dashboard.load_aliases(self.config['contig_aliases'])
+        else:
+            aliases = {}
+        view = dashboard.DashboardView(
+            self, self.config['barcode_names'], 'progress', 'mapped_rate',
+            self.config['analysis_start_delay'], aliases)
+        view.start(self.loop, bool(self.config['minimap2_index']))
+        return view
+
     def finalize_results(self):
         # the dump part files are closed before the inventories link into
         # them
@@ -548,6 +581,8 @@ class ProcessingSession:
 
             if config['quiet']:
                 pass
+            elif config['dashboard']:
+                sess.dashboard = sess.start_dashboard()
             elif config['live']:
                 sess.spawn(sess.show_progresses_live())
             else:
@@ -567,6 +602,9 @@ class ProcessingSession:
                 errprint('\nERROR: ' + str(exc))
                 for line in errf.getvalue().splitlines():
                     logger.error(line)
+
+            if sess.dashboard is not None:
+                sess.dashboard.stop()
 
             for task in [t for t in asyncio.all_tasks(loop) if not t.done()]:
                 task.cancel()

@@ -13,7 +13,7 @@ import uuid
 
 import numpy as np
 
-from .fast5 import EventTable
+from .fast5 import EventTable, dac_to_pa
 
 DIGITISATION = 8192.0
 RANGE = 1169.0
@@ -273,10 +273,15 @@ class MemoryRead:
         self.run_id = read.run_id
         self.sample_id = read.sample_id
         self.offset = OFFSET
+        self.range = RANGE
+        self.digitisation = DIGITISATION
         self.pa_scale = RANGE / DIGITISATION
 
     def get_raw_dac(self):
         return self.read.raw_dac
+
+    def get_raw_data(self):
+        return dac_to_pa(self.read.raw_dac, RANGE, DIGITISATION, OFFSET)
 
     def get_basecall(self, columns=None):
         read = self.read

@@ -9,8 +9,11 @@ the timestamps, the version and command lines, the stage timers and the
 port's device line are left out and each run's output directory is named
 alike.
 
-Also: every option of poreplex-tpu's command line either gives the same
-config value in both packages or is refused by the port; the output
+Also: every option of poreplex-tpu's command line gives the same config
+value in both packages (``--basecall`` and ``--align`` with stand-ins of
+albacore, mappy and pysam) or, for a TPU knob, is unknown to the port;
+without albacore, mappy or pysam both command lines stop ``--basecall``
+and ``--align`` with the same message and exit code; the output
 directory's y/N gate, -y, --resume and the tmpdir in both packages; and
 the port's CLI without --cpu where there is no CUDA."""
 
@@ -325,10 +328,21 @@ CARRIED = {
     '--node-rank': ['--node-rank', '0'],
     '--coordinator': ['--coordinator', '127.0.0.1:1'],
 }
-# options of later slices: the port stops with an error naming the slice
-REFUSED = {
-    '--basecall': (['--basecall'], 'the albacore basecalling slice'),
-    '--align': (['--align', 'ref.mmi'], 'the alignment slice'),
+# options whose stages need packages this host may lack, carried with the
+# stand-ins of tests/test_torch_albacore.py and tests/test_torch_alignment.py
+# installed: (arguments, the stand-ins)
+WITH_PACKAGES = {
+    '--basecall': (['--basecall'], ('albacore',)),
+    '--align': (['--align', '{mmi}', '--dashboard'], ('mappy', 'pysam')),
+}
+# a package missing -> the option that needs it and both CLIs' message
+ABSENT = {
+    'albacore': ('--basecall', 'ERROR: On-the-fly basecalling '
+                 '(--basecall) requires the ONT albacore package.'),
+    'mappy': ('--align', 'ERROR: Real-time alignment (--align) requires '
+              'mappy and pysam.'),
+    'pysam': ('--align', 'ERROR: Real-time alignment (--align) requires '
+              'mappy and pysam.'),
 }
 # TPU knobs the port does not add: its parser refuses them
 TPU_KNOBS = {'--pallas': ['--pallas', 'never'], '--prewarm': ['--prewarm']}
@@ -356,7 +370,8 @@ def jax_option_strings(capsys):
 
 
 def test_option_table_covers_every_jax_option(capsys):
-    listed = set(CARRIED) | set(REFUSED) | set(TPU_KNOBS) | set(EXITING)
+    listed = set(CARRIED) | set(WITH_PACKAGES) | set(TPU_KNOBS) | \
+        set(EXITING)
     assert jax_option_strings(capsys) == listed
 
 
@@ -419,16 +434,104 @@ def test_carried_option_gives_the_same_config(option, tmp_path,
         assert err.count('WARNING: Dashboard is turned off') == 2
 
 
-@pytest.mark.parametrize('option', sorted(REFUSED))
-def test_later_slice_option_stops(option, tmp_path, capsys):
-    argv, slice_name = REFUSED[option]
-    with pytest.raises(SystemExit) as exc:
-        run_torch_cli(['-i', str(tmp_path), '-o', str(tmp_path / 'out'),
-                       '--cpu', '-y', '-q'] + argv)
-    assert exc.value.code not in (0, None)
-    err = capsys.readouterr().err
-    assert option in err and slice_name in err
-    assert not (tmp_path / 'out').exists()
+def install_stand_ins(monkeypatch, tmp_path, names):
+    """The stand-ins of the packages ``names`` in sys.modules."""
+    from test_torch_albacore import install_albacore
+    from test_torch_alignment import PYSAM, make_mappy
+    stand_ins = {'mappy': make_mappy({}), 'pysam': PYSAM}
+    for name in names:
+        if name == 'albacore':
+            install_albacore(monkeypatch, tmp_path / 'albacore-data',
+                             lambda *args: [])
+        else:
+            monkeypatch.setitem(sys.modules, name, stand_ins[name])
+
+
+@pytest.mark.parametrize('option', sorted(WITH_PACKAGES))
+def test_package_option_gives_the_same_config(option, tmp_path,
+                                              option_presets):
+    """With the stand-ins, the same config in both packages: albacore's
+    configuration written into each output directory alike, its version,
+    the index and the dashboard kept on with --align."""
+    from test_torch_alignment import write_mmi
+    indir = tmp_path / 'in'
+    indir.mkdir()
+    mmi = write_mmi(tmp_path / 'ref.mmi', {'chr1': 100})
+    argv, packages = WITH_PACKAGES[option]
+    configs, cfg_texts = {}, {}
+    for package, run in (('jax', run_jax_cli), ('torch', run_torch_cli)):
+        out = tmp_path / package
+        with pytest.MonkeyPatch.context() as mp:
+            install_stand_ins(mp, tmp_path, packages)
+            config = captured_config(
+                run, ['-i', str(indir), '-o', str(out), '--cpu', '-y'] +
+                [arg.format(mmi=mmi) for arg in argv], package)['config']
+        for key in ('outputdir', 'tmpdir', 'albacore_configuration'):
+            if config.get(key):
+                config[key] = os.path.relpath(config[key], str(out))
+        configs[package] = config
+        cfg = out / 'albacore-configuration.cfg'
+        cfg_texts[package] = cfg.read_text() if cfg.exists() else None
+    got, ref = configs['torch'], configs['jax']
+    for key in CONFIG_KEYS + ('albacore_configuration', 'albacore_version'):
+        assert got.get(key) == ref.get(key), key
+    assert cfg_texts['torch'] == cfg_texts['jax']
+    if option == '--basecall':
+        assert got['albacore_onthefly'] and \
+            got['albacore_configuration'] == 'albacore-configuration.cfg'
+        assert got['albacore_version'] == '2.3.4'
+        assert 'min_qscore = 0' in cfg_texts['torch']
+    else:
+        assert got['minimap2_index'] == mmi and got['dashboard']
+        assert not got['fastq_output']
+
+
+@pytest.mark.parametrize('package', sorted(ABSENT))
+def test_option_stops_without_its_package(package, tmp_path, monkeypatch,
+                                          capsys):
+    """With the package missing (and the others' stand-ins there), both
+    command lines stop with the same message and exit code, before any
+    read is read."""
+    from test_torch_alignment import write_mmi
+    install_stand_ins(monkeypatch, tmp_path, ['mappy', 'pysam'])
+    monkeypatch.setitem(sys.modules, package, None)
+    option, message = ABSENT[package]
+    argv = [option]
+    if option == '--align':
+        argv.append(write_mmi(tmp_path / 'ref.mmi', {'chr1': 100}))
+    indir = tmp_path / 'in'
+    indir.mkdir()
+    stops = []
+    for name, run in (('jax', run_jax_cli), ('torch', run_torch_cli)):
+        out = tmp_path / name
+        with pytest.raises(SystemExit) as exc:
+            run(['-i', str(indir), '-o', str(out), '--cpu', '-y', '-q'] +
+                argv)
+        err = capsys.readouterr().err
+        stops.append((exc.value.code, err.strip().splitlines()[-1],
+                      sorted(p.name for p in out.iterdir())))
+    assert stops[0] == stops[1]
+    code, last_line, written = stops[1]
+    assert code == 1 and last_line == message
+    assert 'poreplex.log' in written
+    assert 'sequencing_summary.txt' not in written
+
+
+@pytest.mark.parametrize('magic', [b'NOPE', b'MMI'])
+def test_bad_index_stops_both_clis(magic, tmp_path, monkeypatch, capsys):
+    install_stand_ins(monkeypatch, tmp_path, ['mappy', 'pysam'])
+    bad = tmp_path / 'bad.mmi'
+    bad.write_bytes(magic)
+    indir = tmp_path / 'in'
+    indir.mkdir()
+    stops = []
+    for name, run in (('jax', run_jax_cli), ('torch', run_torch_cli)):
+        with pytest.raises(SystemExit) as exc:
+            run(['-i', str(indir), '-o', str(tmp_path / name), '--cpu', '-y',
+                 '-q', '--align', str(bad)])
+        stops.append((exc.value.code, capsys.readouterr().err.strip()))
+    assert stops[0] == stops[1] == (
+        1, 'ERROR: Could not load a minimap2 index from {}.'.format(bad))
 
 
 @pytest.mark.parametrize('trainer', ['train_demux', 'train_scaler'])

@@ -156,11 +156,16 @@ def test_wrappers_refuse_other_devices():
 @pytest.mark.parametrize('option,value', [
     ('dashboard', True), ('albacore_onthefly', True),
     ('minimap2_index', 'ref.mmi')])
-def test_later_slice_options_raise(tmp_path, option, value):
-    from poreplex_torch.config import build_config
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        build_config(str(tmp_path), str(tmp_path), device='cpu',
-                     **{option: value})
+def test_host_stage_options_build(tmp_path, option, value):
+    """The options of the host stages (dashboard, albacore, alignment)
+    build on the CPU as given; on-the-fly basecalling loads every batch
+    in the analyzer's process, as poreplex-tpu's does."""
+    from poreplex_torch.config import build_config, ingest_process_count
+    config = build_config(str(tmp_path), str(tmp_path), device='cpu',
+                          parallel=4, **{option: value})
+    assert config[option] == value and config['device'] == 'cpu'
+    assert ingest_process_count(config) == (
+        0 if option == 'albacore_onthefly' else 4)
 
 
 @pytest.mark.parametrize('option', ['resume', 'live', 'fast5_output',
