@@ -38,7 +38,19 @@
    first reads' stage-1 outputs against the same engine on the CPU, and
    the poly(A) tails and unsplit decisions of a few reads from each window
    bucket the run used (at least two) against the same analyzer on the
-   CPU; every kernel must have been launched on this path;
+   CPU; every kernel must have been launched on this path; then "kernel
+   shapes": the three LSTM wrappers at widths 1, 20, 56, 96, 128 and 256,
+   input widths 1 and 3, and stacked layers of 64 and 32, 32 and 96 units
+   ([37, 61], random weights from a generator of its own, within 5e-5 of
+   the plain versions; each line names the design kernels.lstm.plan
+   chose, whose launch shapes must equal the C side's), both Viterbi
+   wrappers at 1 to 8 states x 1 to 4 components on random HMMs and on
+   the tie HMM at 7 and 8 states ([37, 999], extents, paths and logp equal
+   to the plain version's), and kernels 1 to 5 at the widened preset's
+   full shapes (simulate.write_widened_preset: the scaler's two LSTM(96)
+   at [256, 2000], BiLSTM(56) and LSTM(128) at [256, 300], the 7-state
+   3-component extents at [256, 6666], the 8-state 4-component paths at
+   [1024, 1024]) against their plain versions, timed as in step 2;
 4. profiles one stage-1 batch and one whole 256-read batch: the device's
    busy share, the ten kernels with the most device time and the port's
    own kernels;
@@ -50,7 +62,16 @@
    resumed over the same reads it must analyse only the reads that were
    not okay, and over the okay reads it must launch no kernel and leave a
    header-only summary; then ``python -m poreplex_torch --version`` must
-   exit with 0; then the host stages through the CLI: (a) prints whether
+   exit with 0; then the "session, widened preset": the same reads
+   through commandline.main with -c the widened preset, where every
+   wrapper launches on the widened kernels alone (kernels.instantiations:
+   the general LSTM design, bilstm_kernel<64>, the 8-state Viterbis with
+   the loop over components, the peak detector and the DP), prints
+   reads/s beside the shipped session's, and holds its first reads
+   against the port's CPU session on that preset (summary rows and FASTQ
+   records equal; stage 1's extents, QC and demux decisions exact,
+   scaling and probabilities within 5e-5); then the host stages through
+   the CLI: (a) prints whether
    albacore, mappy and pysam import here and, for each that does not,
    commandline.main with --basecall or --align (a generated .mmi) must
    stop with poreplex-tpu's message and a non-zero exit before any read;
@@ -272,15 +293,43 @@ def torch_lstm(layers, bidirectional=False):
     return net
 
 
-def check_lstms(engine, rng):
-    """The three LSTM kernels at the main path's shapes and at the ragged
-    batches RAGGED: within LSTM_ATOL of their plain versions, timed beside
-    torch.nn.LSTM."""
+def lstm_plan(name, batch, inputs, hidden1, hidden2=None):
+    """kernels.lstm.plan for the shape, each launch's shape held against
+    the one the C side launches: (the plan, its launch shape (of the first
+    launch), a description of the design)."""
+    from poreplex_torch.kernels import lstm as klstm
+    pl = klstm.plan(name, batch, inputs, hidden1, hidden2)
+    for launch in pl.launches:
+        rows, threads, blocks = klstm.launch_shape(launch.kernel, batch,
+                                                   launch.hidden)
+        dirs = launch.shape[2] // blocks
+        if (rows, threads, blocks * dirs) != launch.shape:
+            raise AssertionError('{} at {}: plan launches {}, the C side {}'
+                                 .format(name, [batch, inputs, hidden1,
+                                                hidden2], launch.shape,
+                                         (rows, threads, blocks * dirs)))
+    design = '{} {}'.format(pl.route, ', '.join(
+        '{}<H {}>{}'.format(launch.kernel, launch.hidden,
+                            '' if launch.smem_rows is None else
+                            ' ({} recurrent rows in shared memory)'.format(
+                                launch.smem_rows))
+        for launch in pl.launches))
+    return pl, pl.launches[0].shape, design
+
+
+def check_lstms(engine, rng, ragged=RAGGED):
+    """The three LSTM kernels on the engine's networks (at their widths)
+    at the main path's shapes and at the ragged batches: within LSTM_ATOL
+    of their plain versions, timed beside torch.nn.LSTM."""
     from poreplex_torch.kernels import lstm as klstm
     from poreplex_torch.ops import rnn
     scaler, demux = engine.scaler, engine.demux
     dev = DEVICE
     rows = []
+    h1, h2 = (scaler.lstm1['recurrent'].shape[0],
+              scaler.lstm2['recurrent'].shape[0])
+    hb, hl = (demux.bilstm_fwd['recurrent'].shape[0],
+              demux.lstm2['recurrent'].shape[0])
 
     heads = torch.as_tensor(rng.normal(90, 12, (BATCH, scaler.pooled_length,
                                                 1)).astype(np.float32),
@@ -290,35 +339,35 @@ def check_lstms(engine, rng):
     seq = klstm.bidirectional_lstm(demux.bilstm_fwd, demux.bilstm_bwd,
                                    windows)
 
-    # (name, Pallas entry, hidden, kernel, plain, torch.nn.LSTM, main input,
-    #  the library output's last-h pick, flops(B, T), bytes(B, T), ragged)
+    # (name, Pallas entry, plan's widths, kernel, plain, torch.nn.LSTM, main
+    #  input, the library output's last-h pick, flops(B, T), bytes(B, T))
     cases = [
-        ('lstm2_stacked', 'poreplex_tpu/ops/pallas_rnn.py:102', 48,
+        ('lstm2_stacked', 'poreplex_tpu/ops/pallas_rnn.py:102', (1, h1, h2),
          lambda xs: klstm.lstm2_stacked(scaler.lstm1, scaler.lstm2, xs),
          lambda xs: rnn.lstm2_stacked(scaler.lstm1, scaler.lstm2, xs),
          torch_lstm([[scaler.lstm1], [scaler.lstm2]]), heads,
          lambda out: out[:, -1],
-         lambda B, T: lstm_flops(B, T, 1, 48, 1) + lstm_flops(B, T, 48, 48, 1),
-         lambda B, T: B * T * 4 + B * 48 * 4, RAGGED),
-        ('bidirectional_lstm', 'poreplex_tpu/ops/pallas_rnn.py:236', 48,
+         lambda B, T: lstm_flops(B, T, 1, h1, 1) + lstm_flops(B, T, h1, h2, 1),
+         lambda B, T: B * T * 4 + B * h2 * 4),
+        ('bidirectional_lstm', 'poreplex_tpu/ops/pallas_rnn.py:236', (1, hb),
          lambda xs: klstm.bidirectional_lstm(demux.bilstm_fwd,
                                              demux.bilstm_bwd, xs),
          lambda xs: rnn.bidirectional_lstm(demux.bilstm_fwd, demux.bilstm_bwd,
                                            xs),
          torch_lstm([[demux.bilstm_fwd, demux.bilstm_bwd]],
                     bidirectional=True), windows, lambda out: out,
-         lambda B, T: 2 * lstm_flops(B, T, 1, 48, 1),
-         lambda B, T: B * T * 4 + B * T * 96 * 4, RAGGED),
-        ('lstm_last', 'poreplex_tpu/ops/pallas_rnn.py:174', 64,
+         lambda B, T: 2 * lstm_flops(B, T, 1, hb, 1),
+         lambda B, T: B * T * 4 + B * T * 2 * hb * 4),
+        ('lstm_last', 'poreplex_tpu/ops/pallas_rnn.py:174', (2 * hb, hl),
          lambda xs: klstm.lstm_last(demux.lstm2, xs),
          lambda xs: rnn.lstm(demux.lstm2, xs, return_sequences=False),
          torch_lstm([[demux.lstm2]]), seq, lambda out: out[:, -1],
-         lambda B, T: lstm_flops(B, T, 96, 64, 1),
-         lambda B, T: B * T * 96 * 4 + B * 64 * 4, RAGGED),
+         lambda B, T: lstm_flops(B, T, 2 * hb, hl, 1),
+         lambda B, T: B * T * 2 * hb * 4 + B * hl * 4),
     ]
-    for (name, replaces, hidden, kernel, plain, net, xs_main, pick, flops,
-         nbytes, ragged) in cases:
-        for batch in (BATCH,) + ragged:
+    for (name, replaces, widths, kernel, plain, net, xs_main, pick, flops,
+         nbytes) in cases:
+        for batch in (BATCH,) + tuple(ragged):
             xs = xs_main[:batch].contiguous()
             seqlen = xs.shape[1]
             got = kernel(xs)
@@ -331,14 +380,15 @@ def check_lstms(engine, rng):
             with torch.inference_mode():
                 lib_err = float((pick(net(xs)[0]) - got).abs().max())
                 library_ms = time_ms(lambda: net(xs), reps=5)
+            _, launch, design = lstm_plan(name, batch, *widths)
             rows.append(dict(
                 name=name, route='cuda', source='poreplex_torch/csrc/lstm.cu',
                 replaces=replaces, shape=[batch, seqlen], max_abs_err=err,
                 ms=time_ms(lambda: kernel(xs), reps=5), plain_ms=plain_ms,
                 library_ms=library_ms, flops=flops(batch, seqlen),
                 nbytes=nbytes(batch, seqlen), library_err=lib_err,
-                steps=seqlen, step_unit='step',
-                launch=klstm.launch_shape(name, batch, hidden)))
+                steps=seqlen, step_unit='step', launch=launch, design=design,
+                widths=widths))
     return rows
 
 
@@ -383,6 +433,10 @@ def viterbi_row(name, x, lengths, params):
     from poreplex_torch.ops import viterbi as vit_ops
     batch, seqlen = x.shape
     nstates, ncomp = params[2].shape
+    pl, launch = kvit.plan(nstates, ncomp, batch), kvit.launch_shape(batch)
+    if pl.launch != launch:
+        raise AssertionError('{}: plan launches {}, the C side {}'.format(
+            name, pl.launch, launch))
     kernel = lambda: getattr(kvit, name)(x, lengths, *params)
     got = kernel()
     ref, plain_ms = timed(lambda: getattr(vit_ops, name)(x, lengths, *params))
@@ -408,18 +462,21 @@ def viterbi_row(name, x, lengths, params):
         flops=int(lengths.clamp(max=seqlen).sum()) *
         viterbi_frame_ops(nstates, ncomp),
         nbytes=x.numel() * 4 + batch * 4 + out + batch * 4,
-        steps=seqlen, step_unit='frame', launch=kvit.launch_shape(batch))
+        steps=seqlen, step_unit='frame', launch=launch,
+        design='{}_kernel<{},{}> for {} states, {} components'.format(
+            'viterbi_extents' if name == 'viterbi_extents' else
+            'viterbi_path', pl.states, pl.components, nstates, ncomp))
 
 
-def check_viterbi(engine, rng):
+def check_viterbi(engine, rng, ragged=RAGGED):
     """The segmentation Viterbi extents at the main path's shape and at the
-    ragged batches RAGGED."""
+    ragged batches."""
     xs, lens = viterbi_inputs(rng, engine.seg_frames)
     x = torch.as_tensor(xs, device=DEVICE)
     lengths = torch.as_tensor(lens, device=DEVICE)
     return [viterbi_row('viterbi_extents', x[:batch], lengths[:batch],
                         engine.segmodel.params())
-            for batch in (BATCH,) + RAGGED]
+            for batch in (BATCH,) + tuple(ragged)]
 
 
 def check_viterbi_ties(rng, batch=37, seqlen=999):
@@ -606,6 +663,231 @@ def check_unsplit_viterbi(unsplitmodel, rng, shapes):
     return rows
 
 
+# the "kernel shapes" grid: every LSTM wrapper at each width and input
+# width, the stacked one also at layers of unequal widths, at [37, 61]
+# (within LSTM_ATOL); both Viterbis at 1 to 8 states x 1 to 4 components,
+# and the tie HMM at 7 and 8 states, at [37, 999] (exact, logp included)
+SHAPE_HIDDEN = (1, 20, 56, 96, 128, 256)
+SHAPE_INPUTS = (1, 3)
+SHAPE_STACKED_PAIRS = ((64, 32), (32, 96))
+SHAPE_STATES = tuple(range(1, 9))
+SHAPE_COMPONENTS = (1, 2, 3, 4)
+SHAPE_BATCH = 37
+SHAPE_LSTM_T = 61
+SHAPE_VITERBI_T = 999
+
+
+def random_layer(rng, inputs, hidden):
+    """Random LSTM weights on the card, spread as the shipped LSTM(48)'s
+    (0.3), shrunk as 1 / sqrt(fan-in) past 48 inputs, as a trained wide
+    layer's are (tests/test_torch_kernel_shapes.py)."""
+    def spread(fan_in):
+        return 0.3 * min(1.0, (48.0 / fan_in) ** 0.5)
+    return {key: torch.as_tensor(rng.normal(0, scale, shape).astype(
+        np.float32), device=DEVICE) for key, scale, shape in (
+            ('kernel', spread(inputs), (inputs, 4 * hidden)),
+            ('recurrent', spread(hidden), (hidden, 4 * hidden)),
+            ('bias', 0.1, (4 * hidden,)))}
+
+
+@torch.inference_mode()
+def check_lstm_shapes(rng):
+    """The three LSTM wrappers over the grid, each against its plain
+    version on the card; prints each wrapper's shapes by design with the
+    largest error, and returns {design: count}."""
+    from poreplex_torch.kernels import lstm as klstm
+    from poreplex_torch.ops import rnn
+    cases = []
+    for inputs in SHAPE_INPUTS:
+        for hidden in SHAPE_HIDDEN:
+            cases += [('lstm2_stacked', inputs, hidden, hidden),
+                      ('bidirectional_lstm', inputs, hidden, None),
+                      ('lstm_last', inputs, hidden, None)]
+        cases += [('lstm2_stacked', inputs, h1, h2)
+                  for h1, h2 in SHAPE_STACKED_PAIRS]
+    seen = {}
+    for name, inputs, h1, h2 in cases:
+        xs = torch.as_tensor(rng.normal(0, 1, (
+            SHAPE_BATCH, SHAPE_LSTM_T, inputs)).astype(np.float32),
+            device=DEVICE)
+        first = random_layer(rng, inputs, h1)
+        if name == 'lstm2_stacked':
+            second = random_layer(rng, h1, h2)
+            got = klstm.lstm2_stacked(first, second, xs)
+            ref = rnn.lstm2_stacked(first, second, xs)
+        elif name == 'bidirectional_lstm':
+            second = random_layer(rng, inputs, h1)
+            got = klstm.bidirectional_lstm(first, second, xs)
+            ref = rnn.bidirectional_lstm(first, second, xs)
+        else:
+            got = klstm.lstm_last(first, xs)
+            ref = rnn.lstm(first, xs, return_sequences=False)
+        err = float((got - ref).abs().max())
+        shape = [SHAPE_BATCH, SHAPE_LSTM_T, inputs, h1] + ([h2] if h2 else [])
+        if got.shape != ref.shape or not err <= LSTM_ATOL:
+            raise AssertionError('kernel shapes: {} at [B, T, I, H...] = {}: '
+                                 'shape {}, max abs err {} > {}'.format(
+                                     name, shape, tuple(got.shape), err,
+                                     LSTM_ATOL))
+        pl, _, design = lstm_plan(name, SHAPE_BATCH, inputs, h1, h2)
+        key = (name, pl.route)
+        count, worst = seen.get(key, (0, 0.0))
+        seen[key] = (count + 1, max(worst, err))
+        log('kernel shapes: {} at [B, T, I, H...] = {}: max abs err {:.3g} '
+            'vs plain; {}'.format(name, shape, err, design))
+    for (name, route), (count, worst) in sorted(seen.items()):
+        log('kernel shapes: {} {} design at {} shapes within {} of plain '
+            '(max abs err {:.3g})'.format(name, route, count, LSTM_ATOL,
+                                          worst))
+    check_full_spread(rng)
+    return seen
+
+
+@torch.inference_mode()
+def check_full_spread(rng, seeds=3, factor=10.0):
+    """The stacked general kernel at the grid's LSTM(128) shape with the
+    unshrunk spread 0.3, where float32 rounding grows past LSTM_ATOL
+    (tests/test_torch_kernel_shapes.py): the kernel and the plain version
+    against the plain version in float64 on the same weights. The kernel
+    may leave float64 by no more than ``factor`` times the plain version's
+    float32 does (or LSTM_ATOL): a faulty index or a lost term reads some
+    1e-2 and more."""
+    from poreplex_torch.kernels import lstm as klstm
+    from poreplex_torch.ops import rnn
+    for _ in range(seeds):
+        layers = [{key: torch.as_tensor(rng.normal(0, scale, shape).astype(
+            np.float32), device=DEVICE) for key, scale, shape in (
+                ('kernel', 0.3, (inputs, 512)),
+                ('recurrent', 0.3, (128, 512)), ('bias', 0.1, (512,)))}
+            for inputs in (1, 128)]
+        xs = torch.as_tensor(rng.normal(0, 1, (
+            SHAPE_BATCH, SHAPE_LSTM_T, 1)).astype(np.float32), device=DEVICE)
+        got = klstm.lstm2_stacked(*layers, xs)
+        plain = rnn.lstm2_stacked(*layers, xs)
+        exact = rnn.lstm2_stacked(
+            *[{k: v.double() for k, v in p.items()} for p in layers],
+            xs.double())
+        errs = [float((a.double() - exact).abs().max()) for a in (got, plain)]
+        err = float((got - plain).abs().max())
+        if not errs[0] <= factor * max(errs[1], LSTM_ATOL):
+            raise AssertionError(
+                'kernel shapes: stacked LSTM(128) at spread 0.3: kernel - '
+                'float64 {:.3g} against plain - float64 {:.3g}'.format(*errs))
+        log('kernel shapes: stacked LSTM(128) [{}, {}] at spread 0.3: kernel '
+            '- plain {:.3g}, kernel - float64 {:.3g}, plain - float64 {:.3g} '
+            '(float32 rounding, not the kernel)'.format(
+                SHAPE_BATCH, SHAPE_LSTM_T, err, *errs))
+
+
+@torch.inference_mode()
+def check_viterbi_shapes(rng):
+    """Both Viterbi wrappers at every states x components of the grid on a
+    random HMM, and on the tie HMM at 7 and 8 states, against one plain
+    decode each: extents, paths and logp equal."""
+    from poreplex_torch import simulate
+    from poreplex_torch.kernels import viterbi as kvit
+    from poreplex_torch.ops import viterbi as vit_ops
+    hmms = [('random', simulate.random_hmm(rng, s, k))
+            for s in SHAPE_STATES for k in SHAPE_COMPONENTS]
+    hmms += [('tie', simulate.tie_hmm(k, s)) for s in (7, 8)
+             for k in SHAPE_COMPONENTS]
+    designs = {}
+    for kind, arrays in hmms:
+        params = [torch.as_tensor(a, device=DEVICE) for a in arrays]
+        nstates, ncomp = arrays[2].shape
+        xs, lens = simulate.hmm_signal(rng, arrays[2], SHAPE_BATCH,
+                                       SHAPE_VITERBI_T)
+        x = torch.as_tensor(xs, device=DEVICE)
+        lengths = torch.as_tensor(lens, device=DEVICE)
+        path, logp = vit_ops.viterbi(x, lengths, *params)
+        ref = vit_ops.segment_extents(path, lengths, nstates) + (logp,)
+        got = kvit.viterbi_extents(x, lengths, *params)
+        got_path, got_logp = kvit.viterbi(x, lengths, *params)
+        for what, a, b in (('first', got[0], ref[0]), ('last', got[1], ref[1]),
+                           ('present', got[2], ref[2]),
+                           ('extents logp', got[3], ref[3]),
+                           ('path', got_path, path), ('path logp', got_logp,
+                                                      logp)):
+            if a.shape != b.shape or not bool((a == b).all()):
+                raise AssertionError(
+                    'kernel shapes: {} HMM, {} states x {} components: {} '
+                    'differs from the plain version'.format(
+                        kind, nstates, ncomp, what))
+        if kind == 'tie' and (bool((path == 2).any()) or
+                              not bool((path == 1).any())):
+            raise AssertionError('kernel shapes: tie HMM at {} states: a tie '
+                                 'did not go to the lower state'.format(
+                                     nstates))
+        pl = kvit.plan(nstates, ncomp, SHAPE_BATCH)
+        key = (pl.states, pl.components)
+        designs[key] = designs.get(key, 0) + 1
+    log('kernel shapes: viterbi_extents and viterbi exact (extents, paths, '
+        'logp) at {} HMMs of 1 to 8 states x 1 to 4 components and the tie '
+        'HMM at 7 and 8 states, [{}, {}]; by instantiation <states, '
+        'components (0: any)>: {}'.format(
+            len(hmms), SHAPE_BATCH, SHAPE_VITERBI_T,
+            json.dumps({'<{},{}>'.format(*k): v
+                        for k, v in sorted(designs.items())})))
+    return designs
+
+
+def widened_config(outdir, preset):
+    """The main path's options on the widened preset."""
+    from poreplex_torch.config import build_config
+    return build_config(outdir, outdir, preset=preset, barcoding=True,
+                        trim_adapter=True, device='cuda',
+                        device_batch_size=BATCH,
+                        barcoding_quality_filter=BARCODE_PHRED,
+                        measure_polya=True, filter_unsplit_reads=True,
+                        mesh_shape=1)
+
+
+# the widened preset's kernel rows: wrapper -> JSON name, which names the
+# kernel function that runs it
+WIDENED_ROWS = {
+    'lstm2_stacked': 'lstm2_stacked: lstm2_stacked_general_kernel (widened '
+                     'preset, LSTM(96) x 2)',
+    'bidirectional_lstm': 'bidirectional_lstm: bilstm_kernel<64> (widened '
+                          'preset, BiLSTM(56))',
+    'lstm_last': 'lstm_last: lstm_general_kernel (widened preset, '
+                 'LSTM(128))',
+    'viterbi_extents': 'viterbi_extents: viterbi_extents_kernel<8,0> '
+                       '(widened preset, 7 states, K 3)',
+    'viterbi': 'viterbi: viterbi_path_kernel<8,0> (widened preset, 8 '
+               'states, K 4)',
+}
+
+
+def time_widened(preset, rng):
+    """Kernels 1 to 5 at the widened preset's full shapes (stage 1 at
+    B = 256, the unsplit windows at [1024, 1024]), against their plain
+    versions, timed with their bounds and torch.nn.LSTM."""
+    from poreplex_torch.pipeline.engine import DeviceEngine
+    with tempfile.TemporaryDirectory() as outdir:
+        engine = DeviceEngine(widened_config(outdir, preset))
+        with torch.inference_mode():
+            rows = (check_lstms(engine, rng, ragged=()) +
+                    check_viterbi(engine, rng, ragged=()) +
+                    check_unsplit_viterbi(engine.unsplitmodel, rng,
+                                          ((1024, 1024),)))
+    for row in rows:
+        row['json_name'] = WIDENED_ROWS[row['name']]
+    return rows
+
+
+def check_kernel_shapes(rng, preset):
+    """The "kernel shapes" phase: the grids, then the widened preset's
+    kernel rows (returned)."""
+    t0 = time.perf_counter()
+    check_lstm_shapes(rng)
+    check_viterbi_shapes(rng)
+    rows = time_widened(preset, rng)
+    for row in rows:
+        log(kernel_line(row))
+    log('kernel shapes took {:.1f} s'.format(time.perf_counter() - t0))
+    return rows
+
+
 def kernel_line(row):
     bound_ms, bound_by = bound(row['flops'], row['nbytes'])
     line = ('kernel {name} {shape}: max_err={max_abs_err:.3g} '
@@ -624,6 +906,8 @@ def kernel_line(row):
                  '{})'.format(row['step_unit'],
                               row['ms'] / row['steps'] * 1e3,
                               *row['launch']))
+    if 'design' in row:
+        line += ' design: {}'.format(row['design'])
     return line
 
 
@@ -1007,10 +1291,10 @@ def session_through_cli(config, results, reads, main_outdir, card):
         if batches != N_READS // BATCH:
             raise AssertionError('the CLI session ran {} batches'.format(
                 batches))
+        rate = N_READS / wall_s
         log('session through the CLI: {} reads in {} batches, {:.1f} reads/s '
             '({:.3f} s from main entered to main returned, writers '
-            'included); {}'.format(N_READS, batches, N_READS / wall_s, wall_s,
-                                   card))
+            'included); {}'.format(N_READS, batches, rate, wall_s, card))
         log('session through the CLI: launches', json.dumps(launches))
         log('session through the CLI: stage timers', json.dumps(stages))
 
@@ -1085,6 +1369,118 @@ def session_through_cli(config, results, reads, main_outdir, card):
                              '{}'.format(out.returncode, out.stderr))
     log('python -m poreplex_torch --version: {}'.format(
         out.stdout.splitlines()[0]))
+    return rate
+
+
+# ------------------------------------------- session, widened preset
+
+# the kernel functions the widened preset's session must launch, and no
+# other: the scaler's two LSTM(96) in one launch and the LSTM(128) on the
+# general design (the scaler's layer 1 folds its width-1 input), BiLSTM(56)
+# on the register design at 64, the 7- and 8-state HMMs on the 8-state
+# kernels with a loop over their 3 and 4 components
+WIDENED_FUNCTIONS = ('lstm2_stacked_general_kernel<true>',
+                     'lstm_general_kernel<false>',
+                     'bilstm_kernel<64>', 'viterbi_extents_kernel<8,0>',
+                     'viterbi_path_kernel<8,0>', 'peaks_kernel', 'dp_kernel')
+# reads of the widened session held against the port's CPU session
+WIDENED_CPU_READS = 4
+# the generator of the kernel-shapes phase, apart from the main path's
+SHAPES_SEED = SEED + 5
+
+
+def session_widened(preset, reads, shipped, card):
+    """The main path's reads, from memory, through commandline.main on the
+    card with ``-c`` the widened preset and the main path's options: every
+    wrapper launches, on the widened kernels alone; then the first
+    WIDENED_CPU_READS reads through the port's CPU session (--cpu) on the
+    same preset: their summary rows (status, label, barcode, poly(A)
+    dwell) and FASTQ records (trimmed at the adapter's extent) equal the
+    card session's, and their stage-1 outputs on the card equal the
+    CPU's (extents, QC and demux decisions exactly, scaling and demux
+    probabilities within LSTM_ATOL). Returns the session's launches."""
+    from poreplex_torch import kernels, simulate
+    from poreplex_torch.pipeline.analyzer import BatchAnalyzer
+    from poreplex_torch.pipeline.read import ReadRecord
+    from poreplex_torch.pipeline.source import MemorySource
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        indir = os.path.join(tmp, 'in')
+        os.makedirs(indir)
+
+        def argv(outdir):
+            return ['-i', indir, '-o', outdir, '-y', '-q', '-c', preset,
+                    '--barcoding', '--barcoding-quality-filter',
+                    str(BARCODE_PHRED), '--polya', '--filter-chimera',
+                    '--trim-adapter', '--batch-size', str(BATCH),
+                    '--device-batch-size', str(BATCH), '--mesh-shape', '1']
+        outdir = os.path.join(tmp, 'card')
+        result, wall_s, launches, stages = run_cli(
+            argv(outdir), MemorySource(list(reads.values())))
+        functions = dict(kernels.instantiations)
+        if result is None:
+            raise AssertionError('the widened session did not finish')
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing or set(functions) != set(WIDENED_FUNCTIONS):
+            raise AssertionError('the widened session launched {} (wrappers '
+                                 'never launched: {})'.format(functions,
+                                                              missing))
+        header, rows = summary_rows(outdir)
+        labels = {}
+        for row in rows.values():
+            label = row.split('\t')[header.split('\t').index('label')]
+            labels[label] = labels.get(label, 0) + 1
+        if len(rows) < 0.95 * N_READS or labels.get('pass', 0) < \
+                0.9 * N_READS:
+            raise AssertionError('the widened session wrote {} rows, labels '
+                                 '{}'.format(len(rows), labels))
+        log('session, widened preset: {} reads in {} batches, {:.1f} reads/s '
+            '({:.3f} s from main entered to main returned) against {:.1f} '
+            'reads/s through the CLI on the shipped preset in this run; '
+            'labels {}; {}'.format(
+                N_READS, stages['B:device_stage1']['calls'], N_READS / wall_s,
+                wall_s, shipped, json.dumps(labels), card))
+        log('session, widened preset: launches', json.dumps(launches))
+        log('session, widened preset: launches by kernel function',
+            json.dumps(functions))
+        log('session, widened preset: stage timers', json.dumps(stages))
+
+        ids = list(reads)[:WIDENED_CPU_READS]
+        cpu_out = os.path.join(tmp, 'cpu')
+        t1 = time.perf_counter()
+        cpu_result, _, cpu_launches, _ = run_cli(
+            argv(cpu_out) + ['--cpu'],
+            MemorySource([reads[read_id] for read_id in ids]))
+        cpu_s = time.perf_counter() - t1
+        cpu_header, cpu_rows = summary_rows(cpu_out)
+        want = {k: rows[k] for k in ids if k in rows}
+        if cpu_result is None or any(cpu_launches.values()) or \
+                cpu_header != header or cpu_rows != want:
+            raise AssertionError('the CPU session\'s summary rows differ from '
+                                 'the card\'s: {} against {}'.format(
+                                     cpu_rows, want))
+        fastq, cpu_fastq = fastq_records(outdir), fastq_records(cpu_out)
+        if cpu_fastq != {k: fastq[k] for k in ids if k in fastq}:
+            raise AssertionError('the CPU session\'s FASTQ records differ '
+                                 'from the card\'s')
+        log('session, widened preset: {} reads on the CPU ({:.1f} s): {} '
+            'summary rows and {} FASTQ records equal to the card\'s'.format(
+                len(ids), cpu_s, len(cpu_rows), len(cpu_fastq)))
+
+        config = widened_config(tmp, preset)
+        analyzer = BatchAnalyzer(config)
+        stopped, records = [], []
+        for read_id in ids:
+            rec = ReadRecord('simulated.fast5', analyzer.inputdir, read_id)
+            analyzer.add_read(rec, simulate.MemoryRead(reads[read_id]),
+                              stopped, records)
+        frames = analyzer.engine.seg_frames
+        check_against_cpu(config, analyzer, [
+            (r.pooled, min(len(r.pooled), frames), r.head_len)
+            for r in records])
+    log('session, widened preset took {:.1f} s'.format(
+        time.perf_counter() - t0))
+    return launches
 
 
 # ----------------------------------------------------- host stages
@@ -2699,18 +3095,20 @@ def main(argv):
     if argv and not multi_card:
         print('usage: chip_smoke.py [--multi-card]', file=sys.stderr)
         return 2
+    from poreplex_torch import simulate
     from poreplex_torch.config import build_config
     from poreplex_torch.kernels import _build
     from poreplex_torch.pipeline.engine import DeviceEngine
 
     t0 = time.perf_counter()
     reports = _build.build_all()
-    log('built {} in {:.1f} s'.format(', '.join(reports),
-                                       time.perf_counter() - t0))
+    log('built {} in {:.1f} s ({})'.format(
+        ', '.join(reports), time.perf_counter() - t0, ', '.join(
+            '{} {:.1f} s'.format(source, seconds)
+            for source, seconds in _build.build_seconds.items())))
     for source, report in reports.items():
-        for line in report.splitlines():
-            if 'registers' in line or 'spill' in line:
-                log('  {}: {}'.format(source, line.strip()))
+        for line in _build.usage_lines(source, report):
+            log('  ' + line)
     card = card_line()
     log(card)
     log('torch {} cuda {} on {}'.format(torch.__version__, torch.version.cuda,
@@ -2787,12 +3185,18 @@ def main(argv):
         for row in wide:
             log(kernel_line(row))
         rows += wide
+        preset = simulate.write_widened_preset(os.path.join(outdir,
+                                                            'widened'), SEED)
+        widened_rows = check_kernel_shapes(np.random.default_rng(SHAPES_SEED),
+                                           preset)
         profile('stage-1, {} reads'.format(BATCH),
                 lambda: analyzer.engine.run_stage1_flat(
                     stage1_inputs[:BATCH]))
         profile_batch(analyzer, list(reads.values())[:BATCH])
         del analyzer
-        session_through_cli(config, results, reads, outdir, card)
+        shipped_rate = session_through_cli(config, results, reads, outdir,
+                                           card)
+        widened_launches = session_widened(preset, reads, shipped_rate, card)
         host_stages_through_cli(config, results, reads, outdir, card)
         check_ingest_turns(reads, outdir, card)
         check_every_card(config)
@@ -2817,6 +3221,15 @@ def main(argv):
             'name': row['name'], 'route': row['route'],
             'source': row['source'], 'replaces': row['replaces'],
             'launches': launches[row['name']],
+            'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
+            'plain_ms': row['plain_ms'], 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': row['library_ms']})
+    for row in widened_rows:
+        bound_ms, bound_by = bound(row['flops'], row['nbytes'])
+        kernels_line.append({
+            'name': row['json_name'], 'route': row['route'],
+            'source': row['source'], 'replaces': row['replaces'],
+            'launches': widened_launches[row['name']],
             'max_abs_err': row['max_abs_err'], 'ms': row['ms'],
             'plain_ms': row['plain_ms'], 'bound_ms': bound_ms,
             'bound_by': bound_by, 'library_ms': row['library_ms']})

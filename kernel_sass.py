@@ -2,6 +2,7 @@
 """Reads the loops of the port's CUDA kernels from their SASS.
 
     python3 kernel_sass.py [--out build/kernel_sass]
+    python3 kernel_sass.py --lstm-widths
 
 Builds each source of ``poreplex_torch/csrc`` as the package does at first
 use, writes its SASS (``cuobjdump -sass``) to ``<out>/<source>.sass`` and
@@ -13,7 +14,14 @@ division's slow path is one). A loop that compares floats and holds no
 other branch runs converged whatever each lane's data: the peak
 detector's two frame loops and the Viterbi kernels' forward and backtrace
 loops are such loops, and hold no call. The loops also go to
-``<out>/kernel_sass.json``. Needs the CUDA toolkit, not a card.
+``<out>/kernel_sass.json``. Each kernel's registers and spills
+(``-Xptxas -v``) are printed by instantiation.
+
+``--lstm-widths`` instead compiles ``csrc/lstm.cu`` with wider lists of the
+register design's widths (``PROBE_WIDTHS``, defined before the source is
+included) and prints each instantiation's registers and spills: a width
+that spills is one the package must not instantiate. Needs the CUDA
+toolkit, not a card.
 """
 
 import argparse
@@ -23,6 +31,9 @@ import re
 import subprocess
 import sys
 
+# csrc/lstm.cu's width lists, one width past each instantiated one
+PROBE_WIDTHS = {'STACKED_WIDTHS': (48, 64), 'SEQ_WIDTHS': (64, 80),
+                'LAST_WIDTHS': (64, 80)}
 FUNCTION = re.compile(r'Function : (\S+)\n(.*?)(?=Function :|\Z)', re.S)
 INSTRUCTION = re.compile(r'^\s*/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;', re.M)
 BRANCH = re.compile(r'\bBRA(?:\.\S+)?\b.*?(0x[0-9a-f]+)\s*$')
@@ -65,12 +76,35 @@ def read(text):
             for name, body in FUNCTION.findall(text)}
 
 
+def width_probe(out):
+    """nvcc's resource report of csrc/lstm.cu at PROBE_WIDTHS."""
+    from poreplex_torch.kernels import _build
+    os.makedirs(out, exist_ok=True)
+    source = os.path.join(os.path.abspath(out), 'lstm_widths.cu')
+    with open(source, 'w') as f:
+        for name, widths in PROBE_WIDTHS.items():
+            f.write('#define {}(X) {}\n'.format(
+                name, ' '.join('X({})'.format(w) for w in widths)))
+        f.write('#include "{}"\n'.format(
+            os.path.join(_build.CSRC_DIR, 'lstm.cu')))
+    proc = subprocess.run(
+        [_build.nvcc_path()] + _build.flags('lstm.cu') +
+        ['-o', source[:-3] + '.so', source], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError('nvcc failed:\n' + proc.stdout + proc.stderr)
+    return proc.stdout + proc.stderr
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--out', default=os.path.join('build',
                                                       'kernel_sass'))
+    parser.add_argument('--lstm-widths', action='store_true')
     opts = parser.parse_args()
     from poreplex_torch.kernels import _build
+    if opts.lstm_widths:
+        print('\n'.join(_build.usage_lines('lstm.cu', width_probe(opts.out))))
+        return 0
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), 'cuobjdump')
     os.makedirs(opts.out, exist_ok=True)
     result = {}
@@ -81,9 +115,7 @@ def main():
         name = os.path.splitext(source)[0]
         with open(os.path.join(opts.out, name + '.sass'), 'w') as f:
             f.write(text)
-        for line in report.splitlines():
-            if 'registers' in line or 'spill' in line:
-                print('{}: {}'.format(source, line.strip()))
+        print('\n'.join(_build.usage_lines(source, report)))
         for kernel, loops in read(text).items():
             result[kernel] = loops
             print(kernel)

@@ -4,8 +4,13 @@ Each wrapper checks its inputs, launches its kernel for CUDA tensors on
 the card that holds them (on that card's current stream), and runs the
 plain PyTorch version from ``ops/`` for CPU tensors; any other device
 raises. ``launches`` counts kernel launches per wrapper, so a run can show
-that it went through the kernels.
+that it went through the kernels; ``instantiations`` counts them by the
+kernel function and the shape it was instantiated for (the wrappers pick
+one from their inputs' shapes), e.g. ``'lstm_general_kernel'`` or
+``'viterbi_path_kernel<8,0>'``.
 """
+
+import collections
 
 launches = {
     'lstm2_stacked': 0,
@@ -16,8 +21,16 @@ launches = {
     'detect_peaks': 0,
     'polya_dp': 0,
 }
+instantiations = collections.Counter()
+
+
+def count(wrapper, function):
+    """One launch of kernel ``function`` by ``wrapper``."""
+    launches[wrapper] += 1
+    instantiations[function] += 1
 
 
 def reset_launches():
     for name in launches:
         launches[name] = 0
+    instantiations.clear()

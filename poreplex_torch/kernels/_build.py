@@ -14,9 +14,11 @@ wrapper makes its tensors' card current around the call
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,6 +35,8 @@ SOURCE_FLAGS = {'viterbi.cu': ['--fmad=false']}
 
 _lock = threading.Lock()
 _libraries = {}
+# seconds each source's last nvcc run took
+build_seconds = {}
 
 
 def nvcc_path():
@@ -46,16 +50,15 @@ def nvcc_path():
                        'source at first use and need the CUDA toolkit')
 
 
-def _command(source, output):
-    return ([nvcc_path()] + FLAGS + SOURCE_FLAGS.get(source, []) +
-            ['-o', output, os.path.join(CSRC_DIR, source)])
+def flags(source):
+    return FLAGS + SOURCE_FLAGS.get(source, [])
 
 
 def library_path(source):
     with open(os.path.join(CSRC_DIR, source), 'rb') as f:
         text = f.read()
-    flags = ' '.join(FLAGS + SOURCE_FLAGS.get(source, []))
-    key = hashlib.sha256(text + flags.encode()).hexdigest()[:16]
+    key = hashlib.sha256(text + ' '.join(flags(source)).encode()
+                         ).hexdigest()[:16]
     return os.path.join(BUILD_DIR, '{}-{}.so'.format(
         os.path.splitext(source)[0], key))
 
@@ -68,13 +71,75 @@ def compile_source(source):
         return ''
     os.makedirs(BUILD_DIR, exist_ok=True)
     partial = '{}.{}.tmp'.format(target, os.getpid())
-    proc = subprocess.run(_command(source, partial), capture_output=True,
-                          text=True)
+    command = ([nvcc_path()] + flags(source) +
+               ['-o', partial, os.path.join(CSRC_DIR, source)])
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, capture_output=True, text=True)
+    build_seconds[source] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError('nvcc failed on {}:\n{}{}'.format(
             source, proc.stdout, proc.stderr))
     os.replace(partial, target)
     return proc.stdout + proc.stderr
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILLS = re.compile(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                     r'(\d+) bytes spill loads')
+_REGISTERS = re.compile(r'Used (\d+) registers')
+_ARGS = re.compile(r'I((?:L[a-z]+\d+E)+)E')
+
+
+def kernel_label(mangled):
+    """'lstm2_stacked_kernel<48>' for a mangled kernel name: its last
+    name (past its namespaces) and its integer or bool template
+    arguments."""
+    m = re.match(r'_ZN?', mangled)
+    if not m:
+        return mangled
+    i, name = m.end(), None
+    while True:
+        n = re.match(r'\d+', mangled[i:])
+        if not n:
+            break
+        i += len(n.group())
+        name, i = mangled[i:i + int(n.group())], i + int(n.group())
+    if name is None:
+        return mangled
+    args = _ARGS.match(mangled, i)
+    if not args:
+        return name
+    return '{}<{}>'.format(name, ','.join(
+        ('true' if v == '1' else 'false') if kind == 'b' else v
+        for kind, v in re.findall(r'L([a-z]+)(\d+)E', args.group(1))))
+
+
+def ptxas_usage(report):
+    """{kernel label: (registers, stack bytes, spill store bytes, spill
+    load bytes)} from nvcc's -Xptxas -v report."""
+    usage, entry, spills = {}, None, (0, 0, 0)
+    for line in report.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry, spills = kernel_label(m.group(1)), (0, 0, 0)
+            continue
+        m = _SPILLS.search(line)
+        if m and entry:
+            spills = tuple(int(v) for v in m.groups())
+            continue
+        m = _REGISTERS.search(line)
+        if m and entry:
+            usage[entry] = (int(m.group(1)),) + spills
+            entry = None
+    return usage
+
+
+def usage_lines(source, report):
+    """One line a kernel instantiation of ``source``: its registers, stack
+    and spills from the -Xptxas -v report."""
+    return ['{}: {}: {} registers, {} bytes stack, {} bytes spill stores, '
+            '{} bytes spill loads'.format(source, label, *usage)
+            for label, usage in sorted(ptxas_usage(report).items())]
 
 
 def build_all():

@@ -9,7 +9,7 @@ import ctypes
 
 import torch
 
-from . import launches, _build
+from . import count, _build
 from ..ops import event_detection as ed_ops
 
 _P = ctypes.c_void_p
@@ -66,5 +66,5 @@ def detect_peaks(tstat1, tstat2, lengths, threshold1, threshold2,
             int(window_length2), float(peak_height),
             _build.stream(t1.device))
     _build.check(code, 'detect_peaks')
-    launches['detect_peaks'] += 1
+    count('detect_peaks', 'peaks_kernel')
     return em_s, em_l

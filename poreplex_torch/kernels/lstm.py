@@ -1,22 +1,37 @@
 """Wrappers of the LSTM recurrence kernels (``csrc/lstm.cu``).
 
 Same signatures and results as the plain versions in ``ops/rnn.py``, which
-run for CPU tensors. For CUDA tensors each is one kernel launch. The
-width-1 input projections of the scaler and of the demultiplexer's BiLSTM
-are folded into their kernels whole; the LSTM(64)'s input product is one
-``torch.matmul`` (hoisted out of the recurrence, as in the JAX package),
-and its kernel adds the bias itself:
+run for CPU tensors. For CUDA tensors each launches a kernel of one of two
+designs, which ``plan`` picks from the shapes:
 
-  lstm2_stacked       scaler LSTM(48) -> LSTM(48), last h      [B, 48]
-  bidirectional_lstm  demux BiLSTM(48), whole sequence         [B, T, 96]
-  lstm_last           demux LSTM(64), last h                   [B, 64]
+  lstm2_stacked       two stacked LSTM layers, layer 2's last h   [B, H2]
+  bidirectional_lstm  Keras Bidirectional(concat), every step     [B, T, 2H]
+  lstm_last           one LSTM layer, the last h                  [B, H]
+
+* The register design (one launch): the scaler's and the demultiplexer's
+  shipped shapes and every narrower one. The kernels are instantiated at
+  the widths of ``STACKED_HIDDEN``, ``SEQ_HIDDEN`` and ``LAST_HIDDEN``, the
+  first two for a width-1 input, whose projection they fold in whole; a
+  narrower layer runs at the next such width with inert units (zero
+  kernel, recurrent and bias entries, so its h stays 0 and adds exact
+  zeros), and stacked layers at the wider one's. The LSTM's input product
+  is one ``torch.matmul`` (hoisted out of the recurrence, as in the JAX
+  package), and its kernel adds the bias itself.
+* The general design, any other shape (wider layers, a wider input): one
+  launch of ``lstm_general_kernel`` for a layer or both directions of one,
+  of ``lstm2_stacked_general_kernel`` for the two stacked layers (layer
+  2's input product computed in its steps). A first layer's input product
+  is one ``torch.matmul`` beside the kernel unless the input has width 1.
+  Each weight matrix's first ``smem_rows`` rows sit in shared memory, the
+  rest are read from device memory every step.
 """
 
+import collections
 import ctypes
 
 import torch
 
-from . import launches, _build
+from . import count, _build
 from ..ops import rnn
 
 _P = ctypes.c_void_p
@@ -25,35 +40,141 @@ _SIGNATURES = {
     'pp_lstm2_stacked': [_P] * 8 + [_I, _I, _I, _P],
     'pp_lstm_seq': [_P] * 8 + [_I, _I, _I, _P],
     'pp_lstm_last': [_P] * 4 + [_I, _I, _I, _P],
-    'pp_lstm_launch_shape': [_I, _I, _I, _P],
+    'pp_lstm_general': [_P] * 8 + [_I] * 8 + [_P],
+    'pp_lstm2_stacked_general': [_P] * 8 + [_I] * 6 + [_P],
+    'pp_lstm_launch_shape': [_I, _I, _I, _I, _P],
 }
+# the register design's widths (csrc/lstm.cu STACKED_WIDTHS, SEQ_WIDTHS,
+# LAST_WIDTHS): the shipped networks' and the BiLSTM's widest without a
+# register spill
 STACKED_HIDDEN = (48,)
-SEQ_HIDDEN = (48,)
+SEQ_HIDDEN = (48, 64)
 LAST_HIDDEN = (48, 64)
+# a block of the register design holds 2 reads; of the general design
+# G_ROWS reads and G_SPLIT threads a unit (whole warps), up to
+# G_MAX_THREADS threads (G_LAYER_THREADS a layer of the stacked kernel),
+# and at most SMEM_BYTES of shared memory (the H100's opt-in limit): weight
+# rows of 16 H bytes (H the width of the gates they feed) and a layer's
+# state of 12 G_ROWS H bytes (h twice, c)
+ROWS = 2
+G_ROWS = 4
+G_SPLIT = 4
+G_MAX_THREADS = 1024
+G_LAYER_THREADS = 384
+SMEM_BYTES = 232448
 # kernel numbers of pp_lstm_launch_shape
-_KERNELS = {'lstm2_stacked': 0, 'bidirectional_lstm': 1, 'lstm_last': 2}
+_SHAPE_KERNELS = {'lstm2_stacked_kernel': 0, 'bilstm_kernel': 1,
+                  'lstm_last_kernel': 2, 'lstm_general_kernel': 3,
+                  'lstm2_stacked_general_kernel': 4}
+
+# one launch: the kernel function, the width it runs at ((H1, H2) for
+# lstm2_stacked_general_kernel), (reads per block, threads per block,
+# blocks), and the rows of each weight matrix it keeps in shared memory
+# (general design; None for the register one)
+Launch = collections.namedtuple('Launch', 'kernel hidden shape smem_rows')
+Plan = collections.namedtuple('Plan', 'route launches')
+
+
+def _register_width(widths, hidden):
+    """The narrowest instantiated width that holds ``hidden`` units, or
+    None."""
+    return next((w for w in widths if w >= hidden), None)
+
+
+def _layer_threads(hidden, most):
+    return min(most, -(-hidden * G_SPLIT // 32) * 32)
+
+
+def _check_state(hidden, state):
+    if state > SMEM_BYTES:
+        raise ValueError('no LSTM kernel for width {}: its state needs {} '
+                         'bytes of shared memory'.format(hidden, state))
+
+
+def _general_launch(batch, hidden, directions=1):
+    state = 3 * G_ROWS * 4 * hidden
+    _check_state(hidden, state)
+    rows = min(hidden, (SMEM_BYTES - state) // (16 * hidden))
+    blocks = -(-batch // G_ROWS) * directions
+    return Launch('lstm_general_kernel', hidden,
+                  (G_ROWS, _layer_threads(hidden, G_MAX_THREADS), blocks),
+                  rows)
+
+
+def _stacked_smem(hidden1, hidden2, rows):
+    """Shared memory bytes of lstm2_stacked_general_kernel keeping the
+    first ``rows`` rows of r1, k2 and r2 (as far as each has them)."""
+    n1, n2 = min(rows, hidden1), min(rows, hidden2)
+    return (16 * (n1 * (hidden1 + hidden2) + n2 * hidden2) +
+            3 * G_ROWS * 4 * (hidden1 + hidden2))
+
+
+def _stacked_general_launch(batch, hidden1, hidden2):
+    _check_state((hidden1, hidden2), _stacked_smem(hidden1, hidden2, 0))
+    lo, hi = 0, max(hidden1, hidden2)   # the most rows that fit
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _stacked_smem(hidden1, hidden2, mid) <= SMEM_BYTES:
+            lo = mid
+        else:
+            hi = mid - 1
+    threads = sum(_layer_threads(h, G_LAYER_THREADS)
+                  for h in (hidden1, hidden2))
+    return Launch('lstm2_stacked_general_kernel', (hidden1, hidden2),
+                  (G_ROWS, threads, -(-batch // G_ROWS)), lo)
+
+
+def plan(name, batch, inputs, hidden1, hidden2=None):
+    """The design and launches of wrapper ``name`` for ``batch`` reads of
+    input width ``inputs`` and layer widths ``hidden1`` (and ``hidden2``,
+    layer 2 of lstm2_stacked): Plan(route 'register' or 'general', a
+    Launch for each launch). Pure: no card needed."""
+    if min(batch, inputs, hidden1, hidden2 or 1) < 1:
+        raise ValueError('{}: empty shape'.format(name))
+    blocks = -(-batch // ROWS)
+    if name == 'lstm2_stacked':
+        width = _register_width(STACKED_HIDDEN, max(hidden1, hidden2))
+        if inputs == 1 and width:
+            return Plan('register', (Launch(
+                'lstm2_stacked_kernel', width, (ROWS, 8 * width, blocks),
+                None),))
+        return Plan('general', (_stacked_general_launch(batch, hidden1,
+                                                        hidden2),))
+    if name == 'bidirectional_lstm':
+        width = _register_width(SEQ_HIDDEN, hidden1)
+        if inputs == 1 and width:
+            return Plan('register', (Launch(
+                'bilstm_kernel', width, (ROWS, 4 * width, blocks), None),))
+        return Plan('general', (_general_launch(batch, hidden1, 2),))
+    if name == 'lstm_last':
+        width = _register_width(LAST_HIDDEN, hidden1)
+        if width:
+            return Plan('register', (Launch(
+                'lstm_last_kernel', width, (ROWS, 2 * width, blocks), None),))
+        return Plan('general', (_general_launch(batch, hidden1),))
+    raise ValueError('no LSTM wrapper {}'.format(name))
 
 
 def _lib():
     return _build.library('lstm.cu', _SIGNATURES)
 
 
-def launch_shape(name, batch, hidden):
-    """(reads per block, threads per block, blocks) of the kernel behind
-    wrapper ``name`` for ``batch`` reads of width ``hidden``."""
+def launch_shape(kernel, batch, hidden):
+    """(reads per block, threads per block, blocks) of one direction of
+    ``kernel`` (a Launch's kernel) for ``batch`` reads of width ``hidden``
+    (a Launch's hidden), as the C side launches it."""
+    h1, h2 = hidden if isinstance(hidden, tuple) else (hidden, 0)
     shape = (ctypes.c_int * 3)()
-    _build.check(_lib().pp_lstm_launch_shape(_KERNELS[name], hidden, batch,
-                                             ctypes.addressof(shape)), name)
+    _build.check(_lib().pp_lstm_launch_shape(_SHAPE_KERNELS[kernel], h1, h2,
+                                             batch, ctypes.addressof(shape)),
+                 kernel)
     return tuple(shape)
 
 
-def _check_layer(name, params, inputs, hidden_sizes):
+def _check_layer(name, params, inputs):
     rec = params['recurrent']
     hidden = rec.shape[0]
-    if hidden not in hidden_sizes:
-        raise ValueError('{}: no kernel for hidden size {}'.format(
-            name, hidden))
-    if (tuple(rec.shape) != (hidden, 4 * hidden) or
+    if (rec.dim() != 2 or tuple(rec.shape) != (hidden, 4 * hidden) or
             tuple(params['kernel'].shape) != (inputs, 4 * hidden) or
             tuple(params['bias'].shape) != (4 * hidden,)):
         raise ValueError('{}: weight shapes do not match'.format(name))
@@ -70,63 +191,134 @@ def _check_input(name, xs):
         raise ValueError('{}: empty batch or sequence'.format(name))
 
 
+def _pad(mat, rows, hidden):
+    """mat [R, 4H] as [rows, 4 * hidden]: gate q's H columns from
+    q * hidden, zeros elsewhere (the inert units and input rows)."""
+    r, h = mat.shape[0], mat.shape[1] // 4
+    if (r, h) == (rows, hidden):
+        return mat
+    out = mat.new_zeros((rows, 4, hidden))
+    out[:r, :, :h] = mat.reshape(r, 4, h)
+    return out.reshape(rows, 4 * hidden)
+
+
+def _pad_layer(params, inputs, hidden):
+    return (_pad(params['kernel'], inputs, hidden),
+            _pad(params['bias'][None], 1, hidden)[0],
+            _pad(params['recurrent'], hidden, hidden))
+
+
+def _general(name, xs, dirs, out, fold, seq, launch):
+    """One launch of the general design over xs [B, T, I]: dirs, one or
+    two (kernel, bias, recurrent) of one layer, the second reversed; fold:
+    xs is the width-1 input, else its product with the kernels is taken
+    here. Returns the C entry's code."""
+    batch, seqlen, inputs = xs.shape
+    hidden = launch.hidden
+    if fold:
+        x, xk_stride = xs.reshape(batch, seqlen), 0
+        ks = [k.reshape(4 * hidden) for k, _, _ in dirs]
+    else:
+        kernel = dirs[0][0] if len(dirs) == 1 else \
+            torch.cat([k for k, _, _ in dirs], dim=1)
+        x = torch.matmul(xs.reshape(batch * seqlen, inputs), kernel)
+        xk_stride, ks = x.shape[1], [x] * len(dirs)    # ks: not read
+    sides = [(k, b, r) for k, (_, b, r) in zip(ks, dirs)]
+    (k0, b0, r0), (k1, b1, r1) = (sides + sides)[:2]
+    _build.require_cuda(name, x, k0, b0, r0, k1, b1, r1, out)
+    p = _build.ptr
+    with _build.device_guard(x):
+        return _lib().pp_lstm_general(
+            p(x), p(k0), p(b0), p(r0), p(k1), p(b1), p(r1), p(out), batch,
+            seqlen, hidden, xk_stride, len(dirs), int(fold), int(seq),
+            launch.smem_rows, _build.stream(xs.device))
+
+
+def _launched(name, code, launch, fold=None):
+    _build.check(code, name)
+    if launch.smem_rows is not None:
+        count(name, '{}<{}>'.format(launch.kernel,
+                                    'true' if fold else 'false'))
+    else:
+        count(name, '{}<{}>'.format(launch.kernel, launch.hidden))
+
+
 def lstm2_stacked(params1, params2, xs):
-    """Two stacked LSTM layers; layer 2's last h [B, H]. On CUDA the input
-    width must be 1: the kernel computes x * kernel + bias itself."""
+    """Two stacked LSTM layers; layer 2's last h [B, H2]."""
     if xs.device.type == 'cpu':
         return rnn.lstm2_stacked(params1, params2, xs)
     _check_input('lstm2_stacked', xs)
-    if xs.shape[2] != 1:
-        raise ValueError('lstm2_stacked: the kernel takes input width 1, '
-                         'not {}'.format(xs.shape[2]))
-    h1 = _check_layer('lstm2_stacked', params1, 1, STACKED_HIDDEN)
-    h2 = _check_layer('lstm2_stacked', params2, h1, STACKED_HIDDEN)
-    if h1 != h2:
-        raise ValueError('lstm2_stacked: layers of unequal width')
-    k1, b1, r1 = params1['kernel'], params1['bias'], params1['recurrent']
-    k2, b2, r2 = params2['kernel'], params2['bias'], params2['recurrent']
-    batch, seqlen, _ = xs.shape
-    out = torch.empty((batch, h2), dtype=torch.float32, device=xs.device)
+    batch, seqlen, inputs = xs.shape
+    h1 = _check_layer('lstm2_stacked', params1, inputs)
+    h2 = _check_layer('lstm2_stacked', params2, h1)
+    pl = plan('lstm2_stacked', batch, inputs, h1, h2)
+    launch, = pl.launches
+    if pl.route == 'general':
+        fold = inputs == 1
+        k1 = params1['kernel']
+        x = xs.reshape(batch, seqlen) if fold else \
+            torch.matmul(xs.reshape(batch * seqlen, inputs), k1)
+        out = torch.empty((batch, h2), dtype=torch.float32, device=xs.device)
+        tensors = (x, k1, params1['bias'], params1['recurrent'],
+                   params2['kernel'], params2['bias'], params2['recurrent'],
+                   out)
+        _build.require_cuda('lstm2_stacked', *tensors)
+        with _build.device_guard(xs):
+            code = _lib().pp_lstm2_stacked_general(
+                *[_build.ptr(t) for t in tensors], batch, seqlen, h1, h2,
+                int(fold), launch.smem_rows, _build.stream(xs.device))
+        _launched('lstm2_stacked', code, launch, fold)
+        return out
+    width = launch.hidden
+    k1, b1, r1 = _pad_layer(params1, 1, width)
+    k2, b2, r2 = _pad_layer(params2, width, width)
+    out = torch.empty((batch, width), dtype=torch.float32, device=xs.device)
     _build.require_cuda('lstm2_stacked', xs, k1, b1, r1, k2, b2, r2, out)
     with _build.device_guard(xs):
         code = _lib().pp_lstm2_stacked(
             _build.ptr(xs), _build.ptr(k1), _build.ptr(b1), _build.ptr(r1),
             _build.ptr(k2), _build.ptr(b2), _build.ptr(r2), _build.ptr(out),
-            batch, seqlen, h1, _build.stream(xs.device))
-    _build.check(code, 'lstm2_stacked')
-    launches['lstm2_stacked'] += 1
-    return out
+            batch, seqlen, width, _build.stream(xs.device))
+    _launched('lstm2_stacked', code, launch)
+    return out if width == h2 else out[:, :h2].contiguous()
 
 
 def bidirectional_lstm(fwd_params, bwd_params, xs):
-    """Keras Bidirectional(concat) LSTM: [B, T, 2H]. On CUDA the input width
-    must be 1: the kernel computes x * kernel + bias itself."""
+    """Keras Bidirectional(concat) LSTM: [B, T, 2H]."""
     if xs.device.type == 'cpu':
         return rnn.bidirectional_lstm(fwd_params, bwd_params, xs)
     _check_input('bidirectional_lstm', xs)
-    if xs.shape[2] != 1:
-        raise ValueError('bidirectional_lstm: the kernel takes input width '
-                         '1, not {}'.format(xs.shape[2]))
-    hidden = _check_layer('bidirectional_lstm', fwd_params, 1, SEQ_HIDDEN)
-    if _check_layer('bidirectional_lstm', bwd_params, 1,
-                    SEQ_HIDDEN) != hidden:
+    batch, seqlen, inputs = xs.shape
+    hidden = _check_layer('bidirectional_lstm', fwd_params, inputs)
+    if _check_layer('bidirectional_lstm', bwd_params, inputs) != hidden:
         raise ValueError('bidirectional_lstm: directions of unequal width')
-    kf, bf, rf = fwd_params['kernel'], fwd_params['bias'], \
-        fwd_params['recurrent']
-    kb, bb, rb = bwd_params['kernel'], bwd_params['bias'], \
-        bwd_params['recurrent']
-    batch, seqlen, _ = xs.shape
-    out = torch.empty((batch, seqlen, 2 * hidden), dtype=torch.float32,
+    pl = plan('bidirectional_lstm', batch, inputs, hidden)
+    launch, = pl.launches
+    if pl.route == 'general':
+        out = torch.empty((batch, seqlen, 2 * hidden), dtype=torch.float32,
+                          device=xs.device)
+        dirs = [(p['kernel'], p['bias'], p['recurrent'])
+                for p in (fwd_params, bwd_params)]
+        code = _general('bidirectional_lstm', xs, dirs, out, inputs == 1,
+                        True, launch)
+        _launched('bidirectional_lstm', code, launch, inputs == 1)
+        return out
+    width = launch.hidden
+    kf, bf, rf = _pad_layer(fwd_params, 1, width)
+    kb, bb, rb = _pad_layer(bwd_params, 1, width)
+    out = torch.empty((batch, seqlen, 2 * width), dtype=torch.float32,
                       device=xs.device)
     _build.require_cuda('bidirectional_lstm', xs, kf, bf, rf, kb, bb, rb, out)
     p = _build.ptr
     with _build.device_guard(xs):
         code = _lib().pp_lstm_seq(
             p(xs), p(kf), p(bf), p(rf), p(kb), p(bb), p(rb), p(out), batch,
-            seqlen, hidden, _build.stream(xs.device))
-    _build.check(code, 'bidirectional_lstm')
-    launches['bidirectional_lstm'] += 1
-    return out
+            seqlen, width, _build.stream(xs.device))
+    _launched('bidirectional_lstm', code, launch)
+    if width == hidden:
+        return out
+    return torch.cat([out[..., :hidden], out[..., width:width + hidden]],
+                     dim=-1)
 
 
 def lstm_last(params, xs):
@@ -134,17 +326,27 @@ def lstm_last(params, xs):
     if xs.device.type == 'cpu':
         return rnn.lstm(params, xs, return_sequences=False)
     _check_input('lstm_last', xs)
-    hidden = _check_layer('lstm_last', params, xs.shape[2], LAST_HIDDEN)
     batch, seqlen, inputs = xs.shape
+    hidden = _check_layer('lstm_last', params, inputs)
+    pl = plan('lstm_last', batch, inputs, hidden)
+    launch, = pl.launches
+    if pl.route == 'general':
+        out = torch.empty((batch, hidden), dtype=torch.float32,
+                          device=xs.device)
+        layer = (params['kernel'], params['bias'], params['recurrent'])
+        code = _general('lstm_last', xs, [layer], out, False, False,
+                        launch)
+        _launched('lstm_last', code, launch, False)
+        return out
+    width = launch.hidden
+    kernel, bias, rec = _pad_layer(params, inputs, width)
     # rnn.project's product; the kernel adds the bias with the same rounding
-    xk = torch.matmul(xs.reshape(batch * seqlen, inputs), params['kernel'])
-    out = torch.empty((batch, hidden), dtype=torch.float32, device=xs.device)
-    bias, rec = params['bias'], params['recurrent']
+    xk = torch.matmul(xs.reshape(batch * seqlen, inputs), kernel)
+    out = torch.empty((batch, width), dtype=torch.float32, device=xs.device)
     _build.require_cuda('lstm_last', xk, bias, rec, out)
     with _build.device_guard(xk):
         code = _lib().pp_lstm_last(_build.ptr(xk), _build.ptr(bias),
                                    _build.ptr(rec), _build.ptr(out), batch,
-                                   seqlen, hidden, _build.stream(xs.device))
-    _build.check(code, 'lstm_last')
-    launches['lstm_last'] += 1
-    return out
+                                   seqlen, width, _build.stream(xs.device))
+    _launched('lstm_last', code, launch)
+    return out if width == hidden else out[:, :hidden].contiguous()

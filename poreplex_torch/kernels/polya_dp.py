@@ -10,7 +10,7 @@ import ctypes
 
 import torch
 
-from . import launches, _build
+from . import count, _build
 from ..ops import polya_dp as dp_ops
 
 _P = ctypes.c_void_p
@@ -68,5 +68,5 @@ def dp(is_polya_a, is_polya_b, length, n_events, spike_weight,
             float(spike_weight), int(spike_tolerance),
             _build.stream(out.device))
     _build.check(code, 'polya_dp')
-    launches['polya_dp'] += 1
+    count('polya_dp', 'dp_kernel')
     return out[0], out[1], out[2]

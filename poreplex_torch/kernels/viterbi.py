@@ -8,13 +8,18 @@ which run for CPU tensors:
                    state is absent (the segmentation HMM of stage 1)
   viterbi          (path [B, T] int64, logp [B]), the decoded state of every
                    frame (the unsplit-read HMM's windows)
+
+The kernels take HMMs of 1 to 8 states with any number of mixture
+components, as the TPU kernels do; ``plan`` gives the instantiation an HMM
+runs on. More than 8 states raise ``ValueError`` before any launch.
 """
 
+import collections
 import ctypes
 
 import torch
 
-from . import launches, _build
+from . import count, _build
 from ..ops import viterbi as vit_ops
 
 _P = ctypes.c_void_p
@@ -24,8 +29,35 @@ _SIGNATURES = {
     'pp_viterbi_path': [_P] * 10 + [_I, _I, _I, _I, _P],
     'pp_viterbi_launch_shape': [_I, _P],
 }
-STATES = (6,)
-COMPONENTS = (1, 2)
+MAX_STATES = 8
+# the kernels' instantiations: states (an HMM of fewer is padded with inert
+# states), and components (any other count runs a loop over them, 0 here)
+PADDED_STATES = (6, 8)
+UNROLLED_COMPONENTS = (1, 2)
+# a block: reads, threads (one chain warp and four worker warps)
+READS = 2
+THREADS = 160
+
+Plan = collections.namedtuple('Plan', 'states components launch')
+
+
+def plan(nstates, ncomp, batch):
+    """The instantiation and launch of either kernel for an HMM of
+    ``nstates`` states with ``ncomp`` components over ``batch`` reads:
+    Plan(states it is padded to, components it is unrolled for (0: a loop
+    over any count), (reads per block, threads per block, blocks)).
+    Raises ValueError for a shape no kernel takes."""
+    if not 1 <= nstates <= MAX_STATES:
+        raise ValueError('no Viterbi kernel for {} states (1 to {})'.format(
+            nstates, MAX_STATES))
+    if ncomp < 1:
+        raise ValueError('no Viterbi kernel for {} components'.format(ncomp))
+    if batch < 1:
+        raise ValueError('empty batch')
+    states = min(s for s in PADDED_STATES if s >= nstates)
+    components = ncomp if ncomp in UNROLLED_COMPONENTS else 0
+    return Plan(states, components,
+                (READS, THREADS, (batch + READS - 1) // READS))
 
 
 def _lib():
@@ -42,6 +74,13 @@ def launch_shape(batch):
     return tuple(shape)
 
 
+def _function(kernel, mus):
+    """The kernel function and instantiation that runs an HMM of mus'
+    [S, K]."""
+    pl = plan(mus.shape[0], mus.shape[1], 1)
+    return '{}<{},{}>'.format(kernel, pl.states, pl.components)
+
+
 def _inputs(name, x, lengths, log_start, log_trans, mus, sigmas, logws):
     """Checks the wrappers' inputs; returns the kernel's (x [B, T], int32
     lengths, emission constants, backpointer scratch [B, T])."""
@@ -49,17 +88,18 @@ def _inputs(name, x, lengths, log_start, log_trans, mus, sigmas, logws):
         raise ValueError('{}: x must be float32 [B, T]'.format(name))
     batch, seqlen = x.shape
     nstates, ncomp = mus.shape
-    if nstates not in STATES or ncomp not in COMPONENTS:
-        raise ValueError('{}: no kernel for {} states x {} components'
-                         .format(name, nstates, ncomp))
+    if batch == 0 or seqlen == 0:
+        raise ValueError('{}: empty batch or sequence'.format(name))
+    if not 1 <= nstates <= MAX_STATES or ncomp < 1:
+        raise ValueError('{}: no kernel for {} states x {} components (1 to '
+                         '{} states)'.format(name, nstates, ncomp,
+                                             MAX_STATES))
     if (tuple(log_start.shape) != (nstates,) or
             tuple(log_trans.shape) != (nstates, nstates) or
             tuple(sigmas.shape) != (nstates, ncomp) or
             tuple(logws.shape) != (nstates, ncomp) or
             tuple(lengths.shape) != (batch,)):
         raise ValueError('{}: parameter shapes do not match'.format(name))
-    if batch == 0 or seqlen == 0:
-        raise ValueError('{}: empty batch or sequence'.format(name))
     for t in (log_start, log_trans, mus, sigmas, logws):
         if t.dtype != torch.float32:
             raise ValueError('{}: parameters must be float32'.format(name))
@@ -90,7 +130,7 @@ def viterbi_extents(x, lengths, log_start, log_trans, mus, sigmas, logws):
             p(const), p(bp), p(first), p(last), p(logp), batch, seqlen,
             nstates, ncomp, _build.stream(x.device))
     _build.check(code, 'viterbi_extents')
-    launches['viterbi_extents'] += 1
+    count('viterbi_extents', _function('viterbi_extents_kernel', mus))
     return first, last, last >= 0, logp
 
 
@@ -116,5 +156,5 @@ def viterbi(x, lengths, log_start, log_trans, mus, sigmas, logws):
             p(const), p(bp), p(path), p(logp), batch, seqlen, nstates,
             ncomp, _build.stream(x.device))
     _build.check(code, 'viterbi')
-    launches['viterbi'] += 1
+    count('viterbi', _function('viterbi_path_kernel', mus))
     return path, logp

@@ -1,8 +1,8 @@
 """Barcode demultiplexer network: the last 300 pooled frames of the
-adapter, med/MAD-normalized -> BiLSTM(48) -> LSTM(64) -> Dense(5) ->
-softmax; label = argmax - decoys, with a calibrated phred score from a
-lookup table and a threshold gate. Weights come from
-``demux-tetra-r4.npz``."""
+adapter, med/MAD-normalized -> BiLSTM -> LSTM -> Dense(5) -> softmax;
+label = argmax - decoys, with a calibrated phred score from a lookup table
+and a threshold gate. Weights come from ``demux-tetra-r4.npz`` (BiLSTM(48),
+LSTM(64)) or any bundle of that layout, at the widths it holds."""
 
 import numpy as np
 import torch

@@ -1,6 +1,7 @@
-"""Signal scaling predictor: the stride-pooled head of a read -> LSTM(48)
--> LSTM(48) -> Dense(2), then an affine output transform and a
-Gaussian-quantile QC gate. Weights come from ``scaler-r3.npz``."""
+"""Signal scaling predictor: the stride-pooled head of a read -> LSTM ->
+LSTM -> Dense(2), then an affine output transform and a Gaussian-quantile
+QC gate. Weights come from ``scaler-r3.npz`` (two LSTM(48)) or any bundle
+of that layout, at the widths it holds."""
 
 import json
 

@@ -1,6 +1,7 @@
-"""The 6-state HMMs of the preset (signal segmentation and unsplit-read
-detection), built from their state lists as dense log-domain arrays
-(``weights.hmm_arrays``)."""
+"""The HMMs of the preset (signal segmentation and unsplit-read
+detection; 6 states each in the shipped one), built from their state lists
+as dense log-domain arrays (``weights.hmm_arrays``). The CUDA kernels take
+1 to 8 states with any number of mixture components."""
 
 import numpy as np
 import torch

@@ -67,27 +67,69 @@ class SimulatedRead:
         return len(self.raw_dac)
 
 
-def tie_hmm(ncomp):
+def tie_hmm(ncomp, nstates=6):
     """A 6-state HMM with ncomp mixture components whose states 1 and 2
     have equal start probabilities, emissions and transitions (out of and
     into each): their scores are equal on every frame, so every argmax
     over predecessors that reaches them ties, the lower state must win and
-    state 2 never appears in a path. Returns float32 arrays (log_start,
-    log_trans [from, to], mus, sigmas, log_weights), the Viterbi entries'
-    parameters."""
-    start = np.array([0.4, 0.2, 0.2, 0.1, 0.05, 0.05])
-    trans = np.full((6, 6), 0.02)
+    state 2 never appears in a path. nstates 7 or 8 appends states at 90
+    and 120 pA (then the start probabilities are normalised); a third
+    component and on sits 7 pA a component above the first, and then the
+    first weighs 0.8, the others share 0.2 (at equal weights the tied
+    states of 8 lose their reads to their neighbours). Returns
+    float32 arrays (log_start, log_trans [from, to], mus, sigmas,
+    log_weights), the Viterbi entries' parameters."""
+    start = np.array([0.4, 0.2, 0.2, 0.1, 0.05, 0.05, 0.05, 0.05])[:nstates]
+    if nstates > 6:
+        start = start / start.sum()
+    trans = np.full((nstates, nstates), 0.02)
     np.fill_diagonal(trans, 0.9)
     trans[:, 2] = trans[:, 1]
     trans[2, :] = trans[1, :]
     trans /= trans.sum(axis=1, keepdims=True)
     mus = np.array([[70, 60], [100, 90], [100, 90], [80, 65], [110, 105],
-                    [95, 85]])[:, :ncomp]
+                    [95, 85], [90, 75], [120, 115]])[:nstates]
     sigmas = np.array([[3, 4], [4, 5], [4, 5], [7, 3], [2.5, 3],
-                       [10, 12]])[:, :ncomp]
-    logws = np.log(np.full((6, ncomp), 1.0 / ncomp))
+                       [10, 12], [5, 6], [3, 4]])[:nstates]
+    extra = np.arange(1, max(ncomp - 2, 0) + 1)
+    mus = np.concatenate([mus, mus[:, :1] + 7.0 * extra], axis=1)[:, :ncomp]
+    sigmas = np.concatenate([sigmas, sigmas[:, :1] + extra],
+                            axis=1)[:, :ncomp]
+    weights = np.full((nstates, ncomp), 1.0 / ncomp)
+    if ncomp > 2:   # most of the weight on the first component
+        weights[:] = 0.2 / (ncomp - 1)
+        weights[:, 0] = 0.8
+    logws = np.log(weights)
     return [a.astype(np.float32)
             for a in (np.log(start), np.log(trans), mus, sigmas, logws)]
+
+
+def random_hmm(rng, nstates, ncomp):
+    """A random HMM of nstates states and ncomp mixture components: sticky
+    transitions (0.9 to itself, the rest at random), components at 60 to
+    125 pA with sigmas 2 to 10 and random weights. Returns float32 arrays
+    as tie_hmm does."""
+    start = rng.dirichlet(np.ones(nstates))
+    trans = rng.dirichlet(np.ones(nstates), nstates) * 0.1
+    trans[np.arange(nstates), np.arange(nstates)] += 0.9
+    mus = rng.uniform(60.0, 125.0, (nstates, ncomp))
+    sigmas = rng.uniform(2.0, 10.0, (nstates, ncomp))
+    weights = rng.dirichlet(np.ones(ncomp), nstates)
+    return [a.astype(np.float32) for a in
+            (np.log(start), np.log(trans), mus, sigmas, np.log(weights))]
+
+
+def hmm_signal(rng, mus, batch, seqlen, run=20, noise=3.0):
+    """[batch, seqlen] float32 signal that dwells ``run`` frames at a time
+    on a state's first component mean (mus [S, K]), with Gaussian noise,
+    and lengths [batch] int32 from 1 to seqlen (the first read 1, the
+    second seqlen)."""
+    levels = rng.choice(np.asarray(mus)[:, 0], (batch, seqlen // run + 1))
+    x = (np.repeat(levels, run, axis=1)[:, :seqlen] +
+         rng.normal(0, noise, (batch, seqlen))).astype(np.float32)
+    lengths = rng.integers(1, seqlen + 1, batch).astype(np.int32)
+    lengths[:2] = (1, seqlen)[:batch]
+    return x, lengths
 
 
 def dp_cases(rng, rows, kmax, spike_weight=1.5, spike_tolerance=110):
@@ -384,3 +426,166 @@ def make_fixture_dir(outdir, n_reads=8, seed=0, basecall='albacore',
         write_single_read_fast5(os.path.join(outdir, fname), read, basecall)
         entries.append((fname, read.read_id))
     return entries
+
+
+# ----------------------------------------------------------------------
+# a preset at other widths and HMM shapes than the shipped one
+
+WIDENED_SCALER_HIDDEN = 96
+WIDENED_SEQ_HIDDEN = 56
+WIDENED_LAST_HIDDEN = 128
+
+
+def _widen_lstm(rng, params, layer, in_rows, inputs, hidden):
+    """The LSTM layer ``layer`` of ``params`` (flat '<layer>/<key>' arrays,
+    Keras gate order) at ``inputs`` inputs and ``hidden`` units: old input
+    row i moves to row in_rows[i]; the new units take seeded weights on
+    every input and recurrence, of the old matrices' spreads scaled to the
+    wider fan-in (by the square root of old over new rows, as initialisers
+    scale them), and every weight from a new input or unit into an old
+    unit is zero, so the old units compute what they did."""
+    kernel, rec, bias = (np.asarray(params[layer + '/' + key], np.float64)
+                         for key in ('kernel', 'recurrent', 'bias'))
+    i0, h0 = kernel.shape[0], rec.shape[0]
+    k = rng.normal(0, kernel.std() * (i0 / inputs) ** 0.5,
+                   (inputs, 4, hidden))
+    r = rng.normal(0, rec.std() * (h0 / hidden) ** 0.5, (hidden, 4, hidden))
+    b = rng.normal(0, bias.std(), (4, hidden))
+    k[:, :, :h0] = 0.0
+    r[:, :, :h0] = 0.0
+    k[in_rows, :, :h0] = kernel.reshape(i0, 4, h0)
+    r[:h0, :, :h0] = rec.reshape(h0, 4, h0)
+    b[:, :h0] = bias.reshape(4, h0)
+    return {layer + '/kernel': k.reshape(inputs, 4 * hidden),
+            layer + '/recurrent': r.reshape(hidden, 4 * hidden),
+            layer + '/bias': b.reshape(4 * hidden)}
+
+
+def _widen_dense(params, in_rows, inputs):
+    kernel = np.asarray(params['dense/kernel'])
+    k = np.zeros((inputs, kernel.shape[1]))
+    k[in_rows] = kernel
+    return {'dense/kernel': k, 'dense/bias': np.asarray(params['dense/bias'])}
+
+
+def widened_networks(rng, scaler, demux):
+    """The shipped networks' bundles (``np.load`` mappings) widened: the
+    scaler's two LSTM(48) to LSTM(96), the demultiplexer's BiLSTM(48) to
+    BiLSTM(56) and its LSTM(64) to LSTM(128), each new unit with seeded
+    weights into it and zero weights out of it into an old unit or the
+    Dense layer. The widened networks compute the shipped functions up to
+    float32 association. Returns the two bundles' arrays."""
+    hs, hb, hl = (WIDENED_SCALER_HIDDEN, WIDENED_SEQ_HIDDEN,
+                  WIDENED_LAST_HIDDEN)
+    old_s = scaler['lstm1/recurrent'].shape[0]
+    out_s = dict(_widen_lstm(rng, scaler, 'lstm1', [0], 1, hs))
+    out_s.update(_widen_lstm(rng, scaler, 'lstm2', np.arange(old_s), hs, hs))
+    out_s.update(_widen_dense(scaler, np.arange(old_s), hs))
+    out_s['meta'] = scaler['meta']
+
+    old_b = demux['bilstm_fwd/recurrent'].shape[0]
+    old_l = demux['lstm2/recurrent'].shape[0]
+    out_d = {}
+    for layer in ('bilstm_fwd', 'bilstm_bwd'):
+        out_d.update(_widen_lstm(rng, demux, layer, [0], 1, hb))
+    # the concatenated directions: forward units first, then backward ones
+    seq_rows = np.concatenate([np.arange(old_b), hb + np.arange(old_b)])
+    out_d.update(_widen_lstm(rng, demux, 'lstm2', seq_rows, 2 * hb, hl))
+    out_d.update(_widen_dense(demux, np.arange(old_l), hl))
+    for key in ('calibration', 'loss_weights'):
+        out_d[key] = demux[key]
+    return ({k: np.asarray(v).astype(np.uint8 if k == 'meta' else
+                                     np.float32) for k, v in out_s.items()},
+            {k: np.asarray(v).astype(np.float64 if k == 'calibration' else
+                                     np.float32) for k, v in out_d.items()})
+
+
+def _state(spec, name):
+    return next(s for s in spec if s['name'] == name)
+
+
+def _insert_leader_mid(spec, start_prob=None):
+    """The state list with 'leader-mid' after 'leader-low': emission the
+    mean of leader-low's and leader-high's, 0.99 to itself and 0.01 on to
+    leader-high; leader-low's way on to leader-high is split between it
+    and leader-mid."""
+    low, high = _state(spec, 'leader-low'), _state(spec, 'leader-high')
+    (mu_l, sd_l), (mu_h, sd_h) = low['emission'][0], high['emission'][0]
+    mid = {'name': 'leader-mid',
+           'emission': [[(mu_l + mu_h) / 2.0, (sd_l + sd_h) / 2.0]],
+           'transition': [['leader-mid', 0.99], ['leader-high', 0.01]]}
+    if start_prob is not None:
+        mid['start_prob'] = start_prob
+    on = [p for nxt, p in low['transition'] if nxt == 'leader-high'][0]
+    low['transition'] = [t for t in low['transition']
+                         if t[0] != 'leader-high'] + \
+        [['leader-mid', on / 2.0], ['leader-high', on / 2.0]]
+    at = spec.index(low) + 1
+    return spec[:at] + [mid] + spec[at:]
+
+
+def widened_hmms(segmentation, unsplit):
+    """The shipped HMM state lists widened: the segmentation model's to 7
+    states (leader-mid) with a third mixture component of 'transcript'
+    (weight 0.05, 95.0 pA, sigma 10.0), K = 3; the unsplit model's to 8
+    states (leader-mid, and 'transcript-b', entered from and left to
+    'transcript' at 0.01, with 4 components), K = 4."""
+    import copy
+    seg = _insert_leader_mid(copy.deepcopy(segmentation))
+    _state(seg, 'transcript')['emission'].append([95.0, 10.0, 0.05])
+    uns = _insert_leader_mid(copy.deepcopy(unsplit), start_prob=0.01)
+    _state(uns, 'transcript')['transition'].append(['transcript-b', 0.01])
+    uns.append({'name': 'transcript-b', 'start_prob': 0.01,
+                'emission': [[82.0, 8.0, 0.4], [110.0, 12.0, 0.4],
+                             [95.0, 10.0, 0.1], [70.0, 6.0, 0.1]],
+                'transition': [['transcript-b', 0.99],
+                               ['transcript', 0.01]]})
+    return seg, uns
+
+
+def write_widened_preset(directory, seed=0):
+    """The shipped rna-r941 preset with the networks of widened_networks
+    (new units seeded from ``seed``) and the HMMs of widened_hmms, at the
+    shipped lengths: ``<directory>/rna-r941-widened.json`` and its two
+    .npz bundles beside it (absolute paths in the preset). Returns the
+    preset's path."""
+    import json
+    from .config import PRESETS_DIR
+    with open(os.path.join(PRESETS_DIR, 'rna-r941.json')) as f:
+        config = json.load(f)
+    os.makedirs(directory, exist_ok=True)
+    bundles = {}
+    for section, key in (('signal_processing', 'scaler_model'),
+                         ('demultiplexing', 'demux_model')):
+        bundles[key] = np.load(os.path.join(PRESETS_DIR,
+                                            config[section][key]))
+    scaler, demux = widened_networks(np.random.default_rng(seed),
+                                     bundles['scaler_model'],
+                                     bundles['demux_model'])
+    for section, key, arrays in (
+            ('signal_processing', 'scaler_model', scaler),
+            ('demultiplexing', 'demux_model', demux)):
+        path = os.path.abspath(os.path.join(directory, key + '.npz'))
+        np.savez(path, **arrays)
+        config[section][key] = path
+    config['preset_name'] = 'rna-r941-widened'
+    config['segmentation_model'], config['unsplit_read_detection_model'] = \
+        widened_hmms(config['segmentation_model'],
+                     config['unsplit_read_detection_model'])
+    path = os.path.join(directory, 'rna-r941-widened.json')
+    with open(path, 'w') as f:
+        json.dump(config, f, indent=2)
+    return path
+
+
+def preset_yaml(json_path):
+    """The YAML form of a JSON preset, beside it, for poreplex-tpu's
+    loader (needs PyYAML, which the port does not); returns its path."""
+    import json
+    import yaml
+    with open(json_path) as f:
+        config = json.load(f)
+    path = os.path.splitext(json_path)[0] + '.yaml'
+    with open(path, 'w') as f:
+        yaml.safe_dump(config, f, sort_keys=False)
+    return path

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Demultiplexer training: BiLSTM(48) -> LSTM(64) -> Dense(5, softmax) with
-the cost-matrix-weighted crossentropy, phred calibration table computation,
-and an npz checkpoint that ``models.demux.DemuxModel`` (and poreplex-tpu's)
-loads.
+"""Demultiplexer training: BiLSTM(48) -> LSTM(64) -> Dense(5, softmax)
+(``init_params`` takes other widths) with the cost-matrix-weighted
+crossentropy, phred calibration table computation, and an npz checkpoint
+that ``models.demux.DemuxModel`` (and poreplex-tpu's) loads.
 
 The PyTorch counterpart of poreplex-tpu's ``training/train_demux.py``: the
 network runs the plain differentiable recurrences of ``ops/rnn.py`` under

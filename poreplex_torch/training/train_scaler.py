@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Scaler training: LSTM(48) -> LSTM(48) -> Dense(2) regression of per-read
-(scale, shift), with standardized targets and the output-transform metadata
-stored in the checkpoint, which ``models.scaler.ScalerModel`` (and
-poreplex-tpu's) loads.
+"""Scaler training: LSTM(48) -> LSTM(48) -> Dense(2) (``init_params``
+takes another width) regression of per-read (scale, shift), with
+standardized targets and the output-transform metadata stored in the
+checkpoint, which ``models.scaler.ScalerModel`` (and poreplex-tpu's)
+loads.
 
 The PyTorch counterpart of poreplex-tpu's ``training/train_scaler.py``:
 the stacked recurrence of ``ops/rnn.py`` under autograd, on the CUDA device

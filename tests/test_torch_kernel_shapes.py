@@ -1,0 +1,390 @@
+"""The shapes of every model and HMM the JAX package accepts, on the
+port's side of the CPU: the plain LSTMs and Viterbis (what the CUDA
+wrappers run for CPU tensors, and what chip_smoke.py holds the kernels
+against on the card) against the JAX package's Pallas entries in
+interpret mode, and the wrappers' choice of kernel design for each shape
+(``kernels.lstm.plan``, ``kernels.viterbi.plan``), checked on 'meta'
+tensors, which take the kernel path without a card.
+
+LSTMs: B = 3, T = 50, H in {1, 20, 56, 96, 128}, input width 1 and 3, and
+stacked layers of unequal widths; within 5e-5 absolute (the bound of
+tests/test_torch_rnn.py). Viterbi: 1, 3, 7 and 8 states x 1, 3 and 4
+components, and the tie HMM at 7 and 8 states; paths and extents exactly
+equal, logp within 1e-6 relative (float32 holds a logp of some -300 to
+3e-5)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from poreplex_tpu.ops import pallas_rnn, pallas_viterbi
+from poreplex_torch import kernels, simulate
+from poreplex_torch.kernels import _build
+from poreplex_torch.kernels import lstm as klstm
+from poreplex_torch.kernels import viterbi as kvit
+from poreplex_torch.ops import rnn
+from poreplex_torch.ops import viterbi as vit_ops
+
+ATOL = 5e-5
+LOGP_RTOL = 1e-6
+HIDDEN = (1, 20, 56, 96, 128)
+INPUTS = (1, 3)
+STACKED_PAIRS = ((64, 32), (32, 96))
+STATES = (1, 3, 7, 8)
+COMPONENTS = (1, 3, 4)
+
+
+def spread(fan_in):
+    """The weights' spread: 0.3, that of tests/test_torch_rnn.py's layers
+    and about that of the shipped networks' LSTM(48) layers, shrunk as
+    1 / sqrt(fan-in) past 48 inputs, so that a wide layer's pre-activations
+    spread as a trained one's do (at 0.3 an LSTM(128) runs into a regime
+    where the float32 rounding of either package's sums grows step by
+    step)."""
+    return 0.3 * min(1.0, (48.0 / fan_in) ** 0.5)
+
+
+def random_layer(rng, inputs, hidden):
+    return {
+        'kernel': rng.normal(0, spread(inputs), (inputs, 4 * hidden)).astype(
+            np.float32),
+        'recurrent': rng.normal(0, spread(hidden), (hidden, 4 * hidden)
+                                ).astype(np.float32),
+        'bias': rng.normal(0, 0.1, (4 * hidden,)).astype(np.float32),
+    }
+
+
+def as_jax(params):
+    return {k: jnp.asarray(v) for k, v in params.items()}
+
+
+def as_torch(params):
+    return {k: torch.from_numpy(v) for k, v in params.items()}
+
+
+# (wrapper, its JAX Pallas entry, the layers' (input, hidden) shapes)
+def lstm_cases():
+    cases = []
+    for inputs in INPUTS:
+        for hidden in HIDDEN:
+            cases += [
+                ('lstm2_stacked', inputs, ((inputs, hidden),
+                                           (hidden, hidden))),
+                ('bidirectional_lstm', inputs, ((inputs, hidden),
+                                                (inputs, hidden))),
+                ('lstm_last', inputs, ((inputs, hidden),)),
+            ]
+        cases += [('lstm2_stacked', inputs, ((inputs, h1), (h1, h2)))
+                  for h1, h2 in STACKED_PAIRS]
+    return cases
+
+
+LSTM_CASES = lstm_cases()
+PALLAS = {'lstm2_stacked': pallas_rnn.lstm2_stacked_pallas,
+          'bidirectional_lstm': pallas_rnn.bidirectional_lstm_pallas,
+          'lstm_last': pallas_rnn.lstm_last_pallas}
+
+
+def case_id(case):
+    name, inputs, layers = case
+    return '{}-I{}-H{}'.format(name, inputs,
+                               '-'.join(str(h) for _, h in layers))
+
+
+@pytest.mark.parametrize('case', LSTM_CASES, ids=case_id)
+def test_plain_lstm_matches_pallas(case):
+    name, inputs, layers = case
+    rng = np.random.RandomState(len(case_id(case)))
+    params = [random_layer(rng, i, h) for i, h in layers]
+    xs = rng.normal(0, 1, (3, 50, inputs)).astype(np.float32)
+
+    before = dict(kernels.launches)
+    got = getattr(klstm, name)(*[as_torch(p) for p in params],
+                               torch.from_numpy(xs)).numpy()
+    assert kernels.launches == before      # CPU tensors: plain version
+    ref = np.asarray(PALLAS[name](*[as_jax(p) for p in params],
+                                  jnp.asarray(xs), interpret=True))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+def stacked_readings(seed, scale):
+    """The stacked LSTM(128) at [37, 61], input width 1 (the card's grid
+    shape), with layers spread ``scale`` (None: ``spread``): max abs
+    differences plain - Pallas, plain - float64 and Pallas - float64, the
+    float64 result being the plain version's on the same weights."""
+    rng = np.random.RandomState(seed)
+
+    def layer(inputs, hidden):
+        p = random_layer(rng, inputs, hidden)
+        if scale is not None:
+            p['kernel'] = p['kernel'] / spread(inputs) * scale
+            p['recurrent'] = p['recurrent'] / spread(hidden) * scale
+        return {k: v.astype(np.float32) for k, v in p.items()}
+
+    params = [layer(1, 128), layer(128, 128)]
+    xs = rng.normal(0, 1, (37, 61, 1)).astype(np.float32)
+    plain = rnn.lstm2_stacked(*[as_torch(p) for p in params],
+                              torch.from_numpy(xs)).numpy()
+    exact = rnn.lstm2_stacked(
+        *[{k: v.double() for k, v in as_torch(p).items()} for p in params],
+        torch.from_numpy(xs).double()).numpy()
+    pallas = np.asarray(pallas_rnn.lstm2_stacked_pallas(
+        *[as_jax(p) for p in params], jnp.asarray(xs), interpret=True))
+    return (float(np.abs(plain - pallas).max()),
+            float(np.abs(plain - exact).max()),
+            float(np.abs(pallas - exact).max()))
+
+
+@pytest.mark.parametrize('seed', range(3))
+def test_full_spread_wide_lstm_is_float32_limited(seed):
+    """Why the layers above spread less past 48 inputs: at 0.3 the stacked
+    LSTM(128) amplifies float32 rounding past ATOL in either package, so
+    one of the plain version and interpret-mode Pallas leaves the float64
+    result by more than ATOL; at ``spread`` both stay within ATOL / 5 of
+    it. Prints the readings (run with -s)."""
+    full = stacked_readings(seed, 0.3)
+    shrunk = stacked_readings(seed, None)
+    for label, (pp, p64, j64) in (('0.3', full), ('shrunk', shrunk)):
+        print('stacked LSTM(128) [37, 61], seed {}, spread {}: plain - '
+              'Pallas {:.3g}, plain - float64 {:.3g}, Pallas - float64 '
+              '{:.3g}'.format(seed, label, pp, p64, j64))
+    assert max(full[1:]) > ATOL
+    assert max(shrunk[1:]) < ATOL / 5
+
+
+def expected_plan(name, inputs, layers, batch):
+    """The design the wrapper must pick: the register kernels at their
+    widths (the narrowest instantiated width that holds the layer; stacked
+    layers at the wider one's) for a width-1 input (any for lstm_last),
+    else the general design, one launch of 4 reads a block and 4 threads
+    a unit in whole warps (at most 1024, and 384 a layer of the stacked
+    kernel)."""
+    hiddens = [h for _, h in layers]
+    widths = {'lstm2_stacked': klstm.STACKED_HIDDEN,
+              'bidirectional_lstm': klstm.SEQ_HIDDEN,
+              'lstm_last': klstm.LAST_HIDDEN}[name]
+    padded = [w for w in widths if w >= max(hiddens)]
+    if padded and (inputs == 1 or name == 'lstm_last'):
+        width = padded[0]
+        threads = {'lstm2_stacked': 8, 'bidirectional_lstm': 4,
+                   'lstm_last': 2}[name] * width
+        return 'register', [(width, (2, threads, -(-batch // 2)))]
+    if name == 'lstm2_stacked':
+        threads = sum(min(384, -(-h // 8) * 32) for h in hiddens)
+        return 'general', [(tuple(hiddens), (4, threads, -(-batch // 4)))]
+    directions = 2 if name == 'bidirectional_lstm' else 1
+    h = hiddens[0]
+    return 'general', [
+        (h, (4, min(1024, -(-h // 8) * 32), -(-batch // 4) * directions))]
+
+
+def general_smem(launch, rows):
+    """Shared memory bytes of a general launch keeping ``rows`` rows of
+    each weight matrix: 16 bytes a row and unit it feeds, 48 a unit of
+    state (h twice and c of 4 reads)."""
+    if launch.kernel == 'lstm2_stacked_general_kernel':
+        h1, h2 = launch.hidden
+        return (16 * (min(rows, h1) * (h1 + h2) + min(rows, h2) * h2) +
+                48 * (h1 + h2))
+    return (16 * rows + 48) * launch.hidden
+
+
+@pytest.mark.parametrize('case', LSTM_CASES + [
+    ('lstm2_stacked', 1, ((1, 48), (48, 48))),
+    ('bidirectional_lstm', 1, ((1, 48), (1, 48))),
+    ('lstm_last', 96, ((96, 64),)),
+    ('lstm_last', 112, ((112, 128),)),
+    ('lstm2_stacked', 1, ((1, 40), (40, 24))),
+    ('lstm2_stacked', 1, ((1, 256), (256, 256)))], ids=case_id)
+def test_plan_picks_the_design(case):
+    name, inputs, layers = case
+    hiddens = [h for _, h in layers]
+    h2 = hiddens[1] if name == 'lstm2_stacked' else None
+    for batch in (1, 37, 256):
+        plan = klstm.plan(name, batch, inputs, hiddens[0], h2)
+        route, launches = expected_plan(name, inputs, layers, batch)
+        assert plan.route == route
+        assert [(l.hidden, l.shape) for l in plan.launches] == launches
+        for launch in plan.launches:
+            if route == 'general':
+                # the weight rows in shared memory and the state fit a
+                # block's shared memory, and as many rows as fit are there
+                used = general_smem(launch, launch.smem_rows)
+                assert used <= klstm.SMEM_BYTES
+                assert launch.smem_rows == max(hiddens) or general_smem(
+                    launch, launch.smem_rows + 1) > klstm.SMEM_BYTES
+            else:
+                assert launch.smem_rows is None
+
+
+def test_shipped_shapes_keep_their_kernels():
+    """The scaler, BiLSTM and LSTM(64) of the shipped networks run on the
+    register kernels at their own widths, unpadded."""
+    assert klstm.plan('lstm2_stacked', 256, 1, 48, 48).launches[0][:2] == \
+        ('lstm2_stacked_kernel', 48)
+    assert klstm.plan('bidirectional_lstm', 256, 1, 48).launches[0][:2] == \
+        ('bilstm_kernel', 48)
+    assert klstm.plan('lstm_last', 256, 96, 64).launches[0][:2] == \
+        ('lstm_last_kernel', 64)
+
+
+def meta_layer(inputs, hidden):
+    meta = dict(device='meta', dtype=torch.float32)
+    return {'kernel': torch.empty(inputs, 4 * hidden, **meta),
+            'recurrent': torch.empty(hidden, 4 * hidden, **meta),
+            'bias': torch.empty(4 * hidden, **meta)}
+
+
+@pytest.mark.parametrize('case', LSTM_CASES, ids=case_id)
+def test_lstm_wrappers_accept_every_shape(case):
+    """Every shape passes the wrapper's checks, its padding and input
+    product, up to the launch: a 'meta' tensor, which no kernel takes,
+    stops it there."""
+    name, inputs, layers = case
+    xs = torch.empty(3, 5, inputs, device='meta')
+    with pytest.raises(ValueError, match='no kernel for device meta'):
+        getattr(klstm, name)(*[meta_layer(i, h) for i, h in layers], xs)
+
+
+def test_inert_units_add_nothing():
+    """The register design's padding: the plain LSTMs on layers padded
+    with inert units (zero kernel, recurrent and bias entries, and zero
+    input rows for the padded units below) give the unpadded results."""
+    rng = np.random.RandomState(3)
+    xs = torch.from_numpy(rng.normal(0, 1, (3, 40, 1)).astype(np.float32))
+    p1, p2 = (as_torch(random_layer(rng, 1, 40)),
+              as_torch(random_layer(rng, 40, 24)))
+    k1, b1, r1 = klstm._pad_layer(p1, 1, 48)
+    k2, b2, r2 = klstm._pad_layer(p2, 48, 48)
+    padded = rnn.lstm2_stacked(
+        {'kernel': k1, 'bias': b1, 'recurrent': r1},
+        {'kernel': k2, 'bias': b2, 'recurrent': r2}, xs)
+    np.testing.assert_allclose(padded[:, :24].numpy(),
+                               rnn.lstm2_stacked(p1, p2, xs).numpy(),
+                               atol=1e-6)
+    assert not padded[:, 24:].any()
+
+    fwd, bwd = (as_torch(random_layer(rng, 1, 56)) for _ in range(2))
+    seq = rnn.bidirectional_lstm(
+        dict(zip(('kernel', 'bias', 'recurrent'),
+                 klstm._pad_layer(fwd, 1, 64))),
+        dict(zip(('kernel', 'bias', 'recurrent'),
+                 klstm._pad_layer(bwd, 1, 64))), xs)
+    want = rnn.bidirectional_lstm(fwd, bwd, xs)
+    np.testing.assert_allclose(
+        torch.cat([seq[..., :56], seq[..., 64:120]], dim=-1).numpy(),
+        want.numpy(), atol=1e-6)
+    assert not seq[..., 56:64].any() and not seq[..., 120:].any()
+
+
+def test_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match='shared memory'):
+        klstm.plan('lstm_last', 4, 3, 20000)
+    with pytest.raises(ValueError, match='no LSTM wrapper'):
+        klstm.plan('lstm', 4, 3, 20)
+    with pytest.raises(ValueError, match='empty'):
+        klstm.plan('lstm_last', 0, 3, 20)
+
+
+# ---------------------------------------------------------------- Viterbi
+
+def viterbi_case(nstates, ncomp, tie=False):
+    """The HMM's arrays and 5 reads of 150 frames of its signal; the tie
+    HMM's reads dwell on its tied states' level first."""
+    rng = np.random.default_rng(100 * nstates + ncomp + 1000 * tie)
+    arrays = (simulate.tie_hmm(ncomp, nstates) if tie else
+              simulate.random_hmm(rng, nstates, ncomp))
+    x, lengths = simulate.hmm_signal(rng, arrays[2], 5, 150)
+    if tie:
+        x[:, :40] = arrays[2][1, 0] + rng.normal(0, 3.0, (5, 40))
+    return arrays, x, lengths
+
+
+VITERBI_CASES = [(s, k, False) for s in STATES for k in COMPONENTS] + \
+    [(s, k, True) for s in (7, 8) for k in (1, 3)]
+
+
+@pytest.mark.parametrize('nstates,ncomp,tie', VITERBI_CASES)
+def test_plain_viterbi_matches_pallas(nstates, ncomp, tie):
+    arrays, x, lengths = viterbi_case(nstates, ncomp, tie)
+    params = [torch.from_numpy(a) for a in arrays]
+    xt, lt = torch.from_numpy(x), torch.from_numpy(lengths)
+
+    before = dict(kernels.launches)
+    path, logp = kvit.viterbi(xt, lt, *params)
+    first, last, present, logp2 = kvit.viterbi_extents(xt, lt, *params)
+    assert kernels.launches == before      # CPU tensors: plain version
+    np.testing.assert_array_equal(logp2.numpy(), logp.numpy())
+
+    jparams = [jnp.asarray(a) for a in arrays]
+    jpath, jlogp = pallas_viterbi.viterbi(jnp.asarray(x), jnp.asarray(lengths),
+                                          *jparams, interpret=True)
+    jf, jl, jp, jlogp2 = pallas_viterbi.viterbi_extents(
+        jnp.asarray(x), jnp.asarray(lengths), *jparams, interpret=True)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(jpath))
+    np.testing.assert_array_equal(first.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(last.numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(present.numpy(), np.asarray(jp))
+    np.testing.assert_allclose(logp.numpy(), np.asarray(jlogp),
+                               rtol=LOGP_RTOL, atol=0)
+    np.testing.assert_allclose(logp.numpy(), np.asarray(jlogp2),
+                               rtol=LOGP_RTOL, atol=0)
+    if tie:
+        assert not (path == 2).any() and (path == 1).any()
+
+
+@pytest.mark.parametrize('nstates', range(1, 10))
+@pytest.mark.parametrize('ncomp', (1, 2, 3, 4))
+def test_viterbi_plan_and_wrappers(nstates, ncomp):
+    """States pad to the 6- or 8-state kernels, 1 and 2 components have
+    their own and more a loop; on 'meta' tensors the wrappers take every
+    shape up to the launch, and refuse 9 states before it."""
+    meta = dict(device='meta', dtype=torch.float32)
+    params = [torch.empty(nstates, **meta),
+              torch.empty(nstates, nstates, **meta)] + \
+        [torch.empty(nstates, ncomp, **meta) for _ in range(3)]
+    x = torch.empty(37, 99, **meta)
+    lengths = torch.empty(37, dtype=torch.int32, device='meta')
+    if nstates > 8:
+        with pytest.raises(ValueError, match='states'):
+            kvit.plan(nstates, ncomp, 37)
+        for entry in (kvit.viterbi, kvit.viterbi_extents):
+            with pytest.raises(ValueError, match='9 states'):
+                entry(x, lengths, *params)
+        return
+    plan = kvit.plan(nstates, ncomp, 37)
+    assert plan.states == (6 if nstates <= 6 else 8)
+    assert plan.components == (ncomp if ncomp <= 2 else 0)
+    assert plan.launch == (2, 160, 19)
+    for entry in (kvit.viterbi, kvit.viterbi_extents):
+        with pytest.raises(ValueError, match='no kernel for device meta'):
+            entry(x, lengths, *params)
+
+
+# ------------------------------------------------------------- the build
+
+PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119viterbi_path_kernelILi8ELi0EEEvPKfPKiS2_S2_NS_7MixtureEPiPxPfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119viterbi_path_kernelILi8ELi0EEEvPKfPKiS2_S2_NS_7MixtureEPiPxPfii
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 360 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119lstm_general_kernelILb1EEEvNS_12GeneralLayerES1_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119lstm_general_kernelILb1EEEvNS_12GeneralLayerES1_iiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 464 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z12peaks_kernelPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z12peaks_kernelPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 360 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_by_instantiation():
+    """The resource report of -Xptxas -v, read by kernel and template
+    arguments: what kernel_sass.py --lstm-widths reads spills from."""
+    assert _build.ptxas_usage(PTXAS) == {
+        'viterbi_path_kernel<8,0>': (72, 8, 4, 12),
+        'lstm_general_kernel<true>': (64, 0, 0, 0),
+        'peaks_kernel': (40, 0, 0, 0)}

@@ -92,8 +92,10 @@ def test_width1_projection_is_two_roundings():
 
 
 def test_stacked_kernel_takes_width_one_only():
-    """The scaler kernel folds a width-1 projection; its wrapper refuses a
-    wider input before any launch (a 'meta' tensor stands for the card's)."""
+    """The scaler's register kernel folds a width-1 projection; a wider
+    input goes to the general design, whose input product is one matmul:
+    the wrapper accepts it and runs it up to the launch (a 'meta' tensor
+    stands for the card's and stops it there)."""
     meta = dict(device='meta', dtype=torch.float32)
     p1 = {'kernel': torch.empty(2, 192, **meta),
           'recurrent': torch.empty(48, 192, **meta),
@@ -101,19 +103,30 @@ def test_stacked_kernel_takes_width_one_only():
     p2 = {'kernel': torch.empty(48, 192, **meta),
           'recurrent': torch.empty(48, 192, **meta),
           'bias': torch.empty(192, **meta)}
-    with pytest.raises(ValueError, match='input width 1, not 2'):
+    assert klstm.plan('lstm2_stacked', 2, 1, 48, 48).launches[0].kernel == \
+        'lstm2_stacked_kernel'
+    plan = klstm.plan('lstm2_stacked', 2, 2, 48, 48)
+    assert plan.route == 'general'
+    assert [launch.kernel for launch in plan.launches] == \
+        ['lstm2_stacked_general_kernel']       # both layers in one launch
+    with pytest.raises(ValueError, match='no kernel for device meta'):
         klstm.lstm2_stacked(p1, p2, torch.empty(2, 5, 2, **meta))
 
 
 def test_bilstm_kernel_takes_width_one_only():
-    """The BiLSTM kernel folds a width-1 projection of both directions;
-    its wrapper refuses a wider input before any launch (a 'meta' tensor
-    stands for the card's)."""
+    """The BiLSTM's register kernel folds a width-1 projection of both
+    directions; a wider input goes to the general design (both directions
+    in one launch): the wrapper accepts it and runs it up to the launch (a
+    'meta' tensor stands for the card's)."""
     meta = dict(device='meta', dtype=torch.float32)
     p = {'kernel': torch.empty(3, 192, **meta),
          'recurrent': torch.empty(48, 192, **meta),
          'bias': torch.empty(192, **meta)}
-    with pytest.raises(ValueError, match='input width 1, not 3'):
+    assert klstm.plan('bidirectional_lstm', 2, 1, 48).route == 'register'
+    plan = klstm.plan('bidirectional_lstm', 2, 3, 48)
+    assert plan.route == 'general'
+    assert plan.launches[0].shape == (4, 192, 2)    # a block per direction
+    with pytest.raises(ValueError, match='no kernel for device meta'):
         klstm.bidirectional_lstm(p, p, torch.empty(2, 5, 3, **meta))
 
 
