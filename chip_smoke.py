@@ -294,27 +294,37 @@ def torch_lstm(layers, bidirectional=False):
 
 
 def lstm_plan(name, batch, inputs, hidden1, hidden2=None):
-    """kernels.lstm.plan for the shape, each launch's shape held against
-    the one the C side launches: (the plan, its launch shape (of the first
-    launch), a description of the design)."""
+    """kernels.lstm.plan for the shape, each launch's shape and cluster
+    held against the ones the C side launches, and each general launch's
+    cudaOccupancyMaxActiveClusters read: (the plan, its launch shape (of
+    the first launch), a description of the design, the first launch's
+    max active clusters (None for the register design))."""
     from poreplex_torch.kernels import lstm as klstm
     pl = klstm.plan(name, batch, inputs, hidden1, hidden2)
+    directions = 2 if name == 'bidirectional_lstm' else 1
+    fold = inputs == 1 and name != 'lstm_last'
+    parts, clusters = [], []
     for launch in pl.launches:
-        rows, threads, blocks = klstm.launch_shape(launch.kernel, batch,
-                                                   launch.hidden)
+        rows, threads, blocks, cluster = klstm.launch_shape(
+            launch.kernel, batch, launch.hidden)
         dirs = launch.shape[2] // blocks
-        if (rows, threads, blocks * dirs) != launch.shape:
-            raise AssertionError('{} at {}: plan launches {}, the C side {}'
-                                 .format(name, [batch, inputs, hidden1,
-                                                hidden2], launch.shape,
-                                         (rows, threads, blocks * dirs)))
-    design = '{} {}'.format(pl.route, ', '.join(
-        '{}<H {}>{}'.format(launch.kernel, launch.hidden,
-                            '' if launch.smem_rows is None else
-                            ' ({} recurrent rows in shared memory)'.format(
-                                launch.smem_rows))
-        for launch in pl.launches))
-    return pl, pl.launches[0].shape, design
+        if ((rows, threads, blocks * dirs) != launch.shape or
+                cluster != (launch.cluster or 0)):
+            raise AssertionError(
+                '{} at {}: plan launches {} in clusters of {}, the C side {} '
+                'in clusters of {}'.format(
+                    name, [batch, inputs, hidden1, hidden2], launch.shape,
+                    launch.cluster, (rows, threads, blocks * dirs), cluster))
+        part = '{}<H {}>'.format(launch.kernel, launch.hidden)
+        if launch.cluster is not None:
+            clusters.append(klstm.max_active_clusters(launch, batch, fold,
+                                                      directions))
+            part += (' (cluster {}, max active clusters {}; {} rows of each '
+                     'matrix in shared memory)'.format(
+                         launch.cluster, clusters[-1], launch.smem_rows))
+        parts.append(part)
+    design = '{} {}'.format(pl.route, ', '.join(parts))
+    return pl, pl.launches[0].shape, design, (clusters or [None])[0]
 
 
 def check_lstms(engine, rng, ragged=RAGGED):
@@ -380,7 +390,7 @@ def check_lstms(engine, rng, ragged=RAGGED):
             with torch.inference_mode():
                 lib_err = float((pick(net(xs)[0]) - got).abs().max())
                 library_ms = time_ms(lambda: net(xs), reps=5)
-            _, launch, design = lstm_plan(name, batch, *widths)
+            pl, launch, design, clusters = lstm_plan(name, batch, *widths)
             rows.append(dict(
                 name=name, route='cuda', source='poreplex_torch/csrc/lstm.cu',
                 replaces=replaces, shape=[batch, seqlen], max_abs_err=err,
@@ -388,7 +398,8 @@ def check_lstms(engine, rng, ragged=RAGGED):
                 library_ms=library_ms, flops=flops(batch, seqlen),
                 nbytes=nbytes(batch, seqlen), library_err=lib_err,
                 steps=seqlen, step_unit='step', launch=launch, design=design,
-                widths=widths))
+                widths=widths, cluster=pl.launches[0].cluster,
+                smem_rows=pl.launches[0].smem_rows, max_clusters=clusters))
     return rows
 
 
@@ -670,6 +681,9 @@ def check_unsplit_viterbi(unsplitmodel, rng, shapes):
 SHAPE_HIDDEN = (1, 20, 56, 96, 128, 256)
 SHAPE_INPUTS = (1, 3)
 SHAPE_STACKED_PAIRS = ((64, 32), (32, 96))
+# past what 8 blocks hold whole: rows read from device memory, and warps
+# that take two passes over their units (wrapper, input width, widths)
+SHAPE_WIDEST = (('lstm2_stacked', 1, 1100, 1100), ('lstm_last', 3, 2100, None))
 SHAPE_STATES = tuple(range(1, 9))
 SHAPE_COMPONENTS = (1, 2, 3, 4)
 SHAPE_BATCH = 37
@@ -705,6 +719,7 @@ def check_lstm_shapes(rng):
                       ('lstm_last', inputs, hidden, None)]
         cases += [('lstm2_stacked', inputs, h1, h2)
                   for h1, h2 in SHAPE_STACKED_PAIRS]
+    cases += list(SHAPE_WIDEST)
     seen = {}
     for name, inputs, h1, h2 in cases:
         xs = torch.as_tensor(rng.normal(0, 1, (
@@ -729,7 +744,7 @@ def check_lstm_shapes(rng):
                                  'shape {}, max abs err {} > {}'.format(
                                      name, shape, tuple(got.shape), err,
                                      LSTM_ATOL))
-        pl, _, design = lstm_plan(name, SHAPE_BATCH, inputs, h1, h2)
+        pl, _, design, _ = lstm_plan(name, SHAPE_BATCH, inputs, h1, h2)
         key = (name, pl.route)
         count, worst = seen.get(key, (0, 0.0))
         seen[key] = (count + 1, max(worst, err))
@@ -872,7 +887,34 @@ def time_widened(preset, rng):
                                           ((1024, 1024),)))
     for row in rows:
         row['json_name'] = WIDENED_ROWS[row['name']]
+    check_widened_clusters(rows)
     return rows
+
+
+# the widened rows that run the general design: each must run in clusters
+# of at least 2 blocks, with every weight row in shared memory
+WIDENED_CLUSTERED = ('lstm2_stacked', 'lstm_last')
+
+
+def check_widened_clusters(rows):
+    """Fails unless the widened LSTM(96) x 2 and LSTM(128) launched in
+    clusters of 2 blocks or more that hold every weight row (none read
+    from device memory in a step), and the card holds their clusters."""
+    for row in rows:
+        if row['name'] not in WIDENED_CLUSTERED:
+            continue
+        widths = row['widths'][1:]
+        if not ((row['cluster'] or 0) >= 2 and
+                row['smem_rows'] == max(widths) and row['max_clusters']):
+            raise AssertionError(
+                '{} at {}: cluster {}, {} of {} rows in shared memory, max '
+                'active clusters {}'.format(
+                    row['json_name'], row['shape'], row['cluster'],
+                    row['smem_rows'], max(widths), row['max_clusters']))
+        log('kernel shapes: {} ran in clusters of {} blocks (the card holds '
+            '{} at once), all {} rows of each matrix in shared memory'.format(
+                row['json_name'], row['cluster'], row['max_clusters'],
+                max(widths)))
 
 
 def check_kernel_shapes(rng, preset):
@@ -906,6 +948,9 @@ def kernel_line(row):
                  '{})'.format(row['step_unit'],
                               row['ms'] / row['steps'] * 1e3,
                               *row['launch']))
+    if row.get('cluster') is not None:
+        line += ' cluster={} max_active_clusters={}'.format(
+            row['cluster'], row['max_clusters'])
     if 'design' in row:
         line += ' design: {}'.format(row['design'])
     return line

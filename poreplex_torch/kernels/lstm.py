@@ -22,8 +22,20 @@ designs, which ``plan`` picks from the shapes:
   of ``lstm2_stacked_general_kernel`` for the two stacked layers (layer
   2's input product computed in its steps). A first layer's input product
   is one ``torch.matmul`` beside the kernel unless the input has width 1.
-  Each weight matrix's first ``smem_rows`` rows sit in shared memory, the
-  rest are read from device memory every step.
+  A thread-block cluster of ``cluster`` blocks (1, 2, 4 or 8, the smallest
+  whose blocks hold every weight row) serves 4 reads: each block owns a
+  contiguous range of each layer's units (``unit_range``), keeps those
+  units' columns of every weight matrix in its shared memory and computes
+  their whole dot products, in the same order at any cluster size, and
+  writes their new h into every block of the cluster over distributed
+  shared memory; one cluster barrier a step. So no weight is read from
+  device memory in a step, and no sum crosses blocks: what bounds a step
+  is a block's share of the weights read from shared memory, its FMAs and
+  the barrier. Only where even 8 blocks cannot hold every row (LSTM(256)
+  x 2) do a block's first ``smem_rows`` rows sit in shared memory and the
+  rest of its columns come from device memory every step. A cluster that
+  the card cannot schedule (``cudaOccupancyMaxActiveClusters`` 0, checked
+  at the first launch of a shape) raises.
 """
 
 import collections
@@ -40,8 +52,9 @@ _SIGNATURES = {
     'pp_lstm2_stacked': [_P] * 8 + [_I, _I, _I, _P],
     'pp_lstm_seq': [_P] * 8 + [_I, _I, _I, _P],
     'pp_lstm_last': [_P] * 4 + [_I, _I, _I, _P],
-    'pp_lstm_general': [_P] * 8 + [_I] * 8 + [_P],
-    'pp_lstm2_stacked_general': [_P] * 8 + [_I] * 6 + [_P],
+    'pp_lstm_general': [_P] * 8 + [_I] * 9 + [_P],
+    'pp_lstm2_stacked_general': [_P] * 8 + [_I] * 7 + [_P],
+    'pp_lstm_max_clusters': [_I] * 8 + [_P],
     'pp_lstm_launch_shape': [_I, _I, _I, _I, _P],
 }
 # the register design's widths (csrc/lstm.cu STACKED_WIDTHS, SEQ_WIDTHS,
@@ -50,29 +63,40 @@ _SIGNATURES = {
 STACKED_HIDDEN = (48,)
 SEQ_HIDDEN = (48, 64)
 LAST_HIDDEN = (48, 64)
-# a block of the register design holds 2 reads; of the general design
-# G_ROWS reads and G_SPLIT threads a unit (whole warps), up to
-# G_MAX_THREADS threads (G_LAYER_THREADS a layer of the stacked kernel),
-# and at most SMEM_BYTES of shared memory (the H100's opt-in limit): weight
-# rows of 16 H bytes (H the width of the gates they feed) and a layer's
-# state of 12 G_ROWS H bytes (h twice, c)
+# a block of the register design holds 2 reads; a cluster of the general
+# design G_ROWS reads, and each of its blocks G_SPLIT lanes a unit it owns
+# and G_V units a lane (whole warps), up to G_MAX_THREADS threads
+# (G_LAYER_THREADS a layer of the stacked kernel), and at most SMEM_BYTES
+# of shared memory (the H100's opt-in limit): its two step barriers
+# (BARRIER_BYTES), weight rows of 16 bytes a unit it owns, and a layer's
+# state of 4 G_ROWS bytes a unit it owns (c) and 8 G_ROWS bytes a unit of
+# the layer (h twice)
 ROWS = 2
 G_ROWS = 4
 G_SPLIT = 4
-G_MAX_THREADS = 1024
-G_LAYER_THREADS = 384
+G_V = 1
+BARRIER_BYTES = 16
+G_MAX_THREADS = 512
+G_LAYER_THREADS = 256
 SMEM_BYTES = 232448
+# the portable cluster sizes, smallest first
+CLUSTER_SIZES = (1, 2, 4, 8)
 # kernel numbers of pp_lstm_launch_shape
 _SHAPE_KERNELS = {'lstm2_stacked_kernel': 0, 'bilstm_kernel': 1,
                   'lstm_last_kernel': 2, 'lstm_general_kernel': 3,
                   'lstm2_stacked_general_kernel': 4}
 
 # one launch: the kernel function, the width it runs at ((H1, H2) for
-# lstm2_stacked_general_kernel), (reads per block, threads per block,
-# blocks), and the rows of each weight matrix it keeps in shared memory
-# (general design; None for the register one)
-Launch = collections.namedtuple('Launch', 'kernel hidden shape smem_rows')
+# lstm2_stacked_general_kernel), (reads per block (per cluster in the
+# general design), threads per block, blocks), the rows of each weight
+# matrix's columns a block keeps in shared memory and the blocks of a
+# cluster (general design; None for the register one)
+Launch = collections.namedtuple('Launch',
+                                'kernel hidden shape smem_rows cluster')
 Plan = collections.namedtuple('Plan', 'route launches')
+# cudaOccupancyMaxActiveClusters by (card, kernel, hidden, shape,
+# smem_rows, cluster, fold), read at the first launch of each
+_max_clusters = {}
 
 
 def _register_width(widths, hidden):
@@ -82,46 +106,86 @@ def _register_width(widths, hidden):
 
 
 def _layer_threads(hidden, most):
-    return min(most, -(-hidden * G_SPLIT // 32) * 32)
+    return min(most, -(-hidden * G_SPLIT // (32 * G_V)) * 32)
 
 
-def _check_state(hidden, state):
-    if state > SMEM_BYTES:
-        raise ValueError('no LSTM kernel for width {}: its state needs {} '
-                         'bytes of shared memory'.format(hidden, state))
+def unit_range(hidden, cluster, rank):
+    """The units [first, end) of a layer of ``hidden`` units that block
+    ``rank`` of a cluster of ``cluster`` blocks owns (csrc/lstm.cu's
+    unit_begin): contiguous ranges that differ by at most one unit."""
+    return rank * hidden // cluster, (rank + 1) * hidden // cluster
 
 
-def _general_launch(batch, hidden, directions=1):
-    state = 3 * G_ROWS * 4 * hidden
-    _check_state(hidden, state)
-    rows = min(hidden, (SMEM_BYTES - state) // (16 * hidden))
-    blocks = -(-batch // G_ROWS) * directions
-    return Launch('lstm_general_kernel', hidden,
-                  (G_ROWS, _layer_threads(hidden, G_MAX_THREADS), blocks),
-                  rows)
+def _most_units(hidden, cluster):
+    return -(-hidden // cluster)
 
 
-def _stacked_smem(hidden1, hidden2, rows):
-    """Shared memory bytes of lstm2_stacked_general_kernel keeping the
-    first ``rows`` rows of r1, k2 and r2 (as far as each has them)."""
+def general_smem(hidden, cluster, rows):
+    """Shared memory bytes of a block of lstm_general_kernel in a cluster
+    of ``cluster`` keeping ``rows`` rows of its units' columns."""
+    units = _most_units(hidden, cluster)
+    return (BARRIER_BYTES + 16 * rows * units +
+            4 * G_ROWS * (2 * hidden + units))
+
+
+def stacked_smem(hidden1, hidden2, cluster, rows):
+    """Shared memory bytes of a block of lstm2_stacked_general_kernel in
+    a cluster of ``cluster`` keeping the first ``rows`` rows of its units'
+    columns of r1, k2 and r2 (as far as each has them)."""
     n1, n2 = min(rows, hidden1), min(rows, hidden2)
-    return (16 * (n1 * (hidden1 + hidden2) + n2 * hidden2) +
-            3 * G_ROWS * 4 * (hidden1 + hidden2))
+    m1, m2 = _most_units(hidden1, cluster), _most_units(hidden2, cluster)
+    return (BARRIER_BYTES + 16 * (n1 * (m1 + m2) + n2 * m2) +
+            4 * G_ROWS * (2 * hidden1 + 2 * hidden2 + m1 + m2))
 
 
-def _stacked_general_launch(batch, hidden1, hidden2):
-    _check_state((hidden1, hidden2), _stacked_smem(hidden1, hidden2, 0))
-    lo, hi = 0, max(hidden1, hidden2)   # the most rows that fit
+def _cluster_and_rows(hidden, smem, rows):
+    """(cluster, rows in shared memory): the smallest portable cluster
+    whose blocks hold all ``rows``; else the largest, with as many rows as
+    fit. ``smem(cluster, rows)`` gives a block's bytes."""
+    for cluster in CLUSTER_SIZES:
+        if smem(cluster, rows) <= SMEM_BYTES:
+            return cluster, rows
+    cluster = CLUSTER_SIZES[-1]
+    if smem(cluster, 0) > SMEM_BYTES:
+        raise ValueError('no LSTM kernel for width {}: its state needs {} '
+                         'bytes of shared memory'.format(
+                             hidden, smem(cluster, 0)))
+    lo, hi = 0, rows   # the most rows that fit
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if _stacked_smem(hidden1, hidden2, mid) <= SMEM_BYTES:
+        if smem(cluster, mid) <= SMEM_BYTES:
             lo = mid
         else:
             hi = mid - 1
-    threads = sum(_layer_threads(h, G_LAYER_THREADS)
-                  for h in (hidden1, hidden2))
+    return cluster, lo
+
+
+def _general_launch(batch, hidden, directions=1):
+    cluster, rows = _cluster_and_rows(
+        hidden, lambda c, r: general_smem(hidden, c, r), hidden)
+    blocks = -(-batch // G_ROWS) * cluster * directions
+    threads = _layer_threads(_most_units(hidden, cluster), G_MAX_THREADS)
+    return Launch('lstm_general_kernel', hidden, (G_ROWS, threads, blocks),
+                  rows, cluster)
+
+
+def stacked_threads(hidden1, hidden2, cluster):
+    """(layer 1's, layer 2's) threads of a block of
+    lstm2_stacked_general_kernel (csrc/lstm.cu's stacked_threads): each
+    layer G_SPLIT lanes a unit it owns, G_V units a lane."""
+    return tuple(_layer_threads(_most_units(h, cluster), G_LAYER_THREADS)
+                 for h in (hidden1, hidden2))
+
+
+def _stacked_general_launch(batch, hidden1, hidden2):
+    cluster, rows = _cluster_and_rows(
+        (hidden1, hidden2),
+        lambda c, r: stacked_smem(hidden1, hidden2, c, r),
+        max(hidden1, hidden2))
+    threads = sum(stacked_threads(hidden1, hidden2, cluster))
     return Launch('lstm2_stacked_general_kernel', (hidden1, hidden2),
-                  (G_ROWS, threads, -(-batch // G_ROWS)), lo)
+                  (G_ROWS, threads, -(-batch // G_ROWS) * cluster), rows,
+                  cluster)
 
 
 def plan(name, batch, inputs, hidden1, hidden2=None):
@@ -137,20 +201,22 @@ def plan(name, batch, inputs, hidden1, hidden2=None):
         if inputs == 1 and width:
             return Plan('register', (Launch(
                 'lstm2_stacked_kernel', width, (ROWS, 8 * width, blocks),
-                None),))
+                None, None),))
         return Plan('general', (_stacked_general_launch(batch, hidden1,
                                                         hidden2),))
     if name == 'bidirectional_lstm':
         width = _register_width(SEQ_HIDDEN, hidden1)
         if inputs == 1 and width:
             return Plan('register', (Launch(
-                'bilstm_kernel', width, (ROWS, 4 * width, blocks), None),))
+                'bilstm_kernel', width, (ROWS, 4 * width, blocks), None,
+                None),))
         return Plan('general', (_general_launch(batch, hidden1, 2),))
     if name == 'lstm_last':
         width = _register_width(LAST_HIDDEN, hidden1)
         if width:
             return Plan('register', (Launch(
-                'lstm_last_kernel', width, (ROWS, 2 * width, blocks), None),))
+                'lstm_last_kernel', width, (ROWS, 2 * width, blocks), None,
+                None),))
         return Plan('general', (_general_launch(batch, hidden1),))
     raise ValueError('no LSTM wrapper {}'.format(name))
 
@@ -160,15 +226,45 @@ def _lib():
 
 
 def launch_shape(kernel, batch, hidden):
-    """(reads per block, threads per block, blocks) of one direction of
-    ``kernel`` (a Launch's kernel) for ``batch`` reads of width ``hidden``
-    (a Launch's hidden), as the C side launches it."""
+    """(reads per block (per cluster), threads per block, blocks, blocks
+    a cluster (0: no cluster)) of one direction of ``kernel`` (a Launch's
+    kernel) for ``batch`` reads of width ``hidden`` (a Launch's hidden),
+    as the C side launches it."""
     h1, h2 = hidden if isinstance(hidden, tuple) else (hidden, 0)
-    shape = (ctypes.c_int * 3)()
+    shape = (ctypes.c_int * 4)()
     _build.check(_lib().pp_lstm_launch_shape(_SHAPE_KERNELS[kernel], h1, h2,
                                              batch, ctypes.addressof(shape)),
                  kernel)
     return tuple(shape)
+
+
+def max_active_clusters(launch, batch, fold, directions=1):
+    """cudaOccupancyMaxActiveClusters of a general ``launch`` for
+    ``batch`` reads on the current card: how many of its clusters the card
+    holds at once (0: none can be scheduled)."""
+    h1, h2 = launch.hidden if isinstance(launch.hidden, tuple) else \
+        (launch.hidden, 0)
+    count = ctypes.c_int()
+    _build.check(_lib().pp_lstm_max_clusters(
+        _SHAPE_KERNELS[launch.kernel], h1, h2, batch, directions, int(fold),
+        launch.cluster, launch.smem_rows, ctypes.byref(count)), launch.kernel)
+    return count.value
+
+
+def _check_schedulable(name, launch, batch, fold, directions, device):
+    """At the first launch of a shape on a card: raises unless the card
+    can hold at least one of its clusters."""
+    key = (device.index, launch.kernel, launch.hidden, launch.shape,
+           launch.smem_rows, launch.cluster, bool(fold))
+    count = _max_clusters.get(key)
+    if count is None:
+        count = _max_clusters[key] = max_active_clusters(launch, batch, fold,
+                                                         directions)
+    if count < 1:
+        raise RuntimeError(
+            '{}: the card cannot schedule a cluster of {} blocks of {} '
+            'threads for {} (cudaOccupancyMaxActiveClusters 0)'.format(
+                name, launch.cluster, launch.shape[1], launch.kernel))
 
 
 def _check_layer(name, params, inputs):
@@ -228,10 +324,11 @@ def _general(name, xs, dirs, out, fold, seq, launch):
     _build.require_cuda(name, x, k0, b0, r0, k1, b1, r1, out)
     p = _build.ptr
     with _build.device_guard(x):
+        _check_schedulable(name, launch, batch, fold, len(dirs), x.device)
         return _lib().pp_lstm_general(
             p(x), p(k0), p(b0), p(r0), p(k1), p(b1), p(r1), p(out), batch,
             seqlen, hidden, xk_stride, len(dirs), int(fold), int(seq),
-            launch.smem_rows, _build.stream(xs.device))
+            launch.cluster, launch.smem_rows, _build.stream(xs.device))
 
 
 def _launched(name, code, launch, fold=None):
@@ -264,9 +361,12 @@ def lstm2_stacked(params1, params2, xs):
                    out)
         _build.require_cuda('lstm2_stacked', *tensors)
         with _build.device_guard(xs):
+            _check_schedulable('lstm2_stacked', launch, batch, fold, 1,
+                               xs.device)
             code = _lib().pp_lstm2_stacked_general(
                 *[_build.ptr(t) for t in tensors], batch, seqlen, h1, h2,
-                int(fold), launch.smem_rows, _build.stream(xs.device))
+                int(fold), launch.cluster, launch.smem_rows,
+                _build.stream(xs.device))
         _launched('lstm2_stacked', code, launch, fold)
         return out
     width = launch.hidden

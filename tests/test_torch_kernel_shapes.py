@@ -154,13 +154,57 @@ def test_full_spread_wide_lstm_is_float32_limited(seed):
     assert max(shrunk[1:]) < ATOL / 5
 
 
+CLUSTERS = (1, 2, 4, 8)
+
+
+def block_smem(kernel, hiddens, cluster, rows, rank=None):
+    """Shared memory bytes of a block of a general launch in a cluster of
+    ``cluster`` keeping ``rows`` rows of its units' columns of each weight
+    matrix: 16 bytes of step barriers, 16 bytes a row and unit it owns, 16
+    a unit it owns (c of 4 reads) and 32 a unit of the layer (h of 4 reads
+    twice). ``rank``: that block's own units; None: the most any block
+    owns (what is allocated)."""
+    def units(h):
+        if rank is None:
+            return -(-h // cluster)
+        return (rank + 1) * h // cluster - rank * h // cluster
+    if kernel == 'lstm2_stacked_general_kernel':
+        h1, h2 = hiddens
+        u1, u2 = units(h1), units(h2)
+        return (16 + 16 * (min(rows, h1) * (u1 + u2) + min(rows, h2) * u2) +
+                16 * (u1 + u2) + 32 * (h1 + h2))
+    h, = hiddens
+    return 16 + 16 * rows * units(h) + 16 * units(h) + 32 * h
+
+
+def expected_cluster(kernel, hiddens):
+    """The smallest portable cluster whose blocks hold every weight row,
+    else 8 with the most rows that fit: (cluster, rows)."""
+    most = max(hiddens)
+    for cluster in CLUSTERS:
+        if block_smem(kernel, hiddens, cluster, most) <= klstm.SMEM_BYTES:
+            return cluster, most
+    rows = most
+    while block_smem(kernel, hiddens, 8, rows) > klstm.SMEM_BYTES:
+        rows -= 1
+    return 8, rows
+
+
+def warps(units, most):
+    """Threads for ``units`` units at 4 lanes a unit, whole warps, at
+    most ``most``."""
+    return min(most, -(-units // 8) * 32)
+
+
 def expected_plan(name, inputs, layers, batch):
     """The design the wrapper must pick: the register kernels at their
     widths (the narrowest instantiated width that holds the layer; stacked
     layers at the wider one's) for a width-1 input (any for lstm_last),
-    else the general design, one launch of 4 reads a block and 4 threads
-    a unit in whole warps (at most 1024, and 384 a layer of the stacked
-    kernel)."""
+    else the general design, one launch in clusters of C blocks (as
+    expected_cluster picks) of 4 reads a cluster, each block 4 lanes a
+    unit it owns in whole warps (at most 512; in the stacked kernel each
+    layer at most 256). Returns (route, [(hidden,
+    shape, cluster, rows)])."""
     hiddens = [h for _, h in layers]
     widths = {'lstm2_stacked': klstm.STACKED_HIDDEN,
               'bidirectional_lstm': klstm.SEQ_HIDDEN,
@@ -170,25 +214,30 @@ def expected_plan(name, inputs, layers, batch):
         width = padded[0]
         threads = {'lstm2_stacked': 8, 'bidirectional_lstm': 4,
                    'lstm_last': 2}[name] * width
-        return 'register', [(width, (2, threads, -(-batch // 2)))]
+        return 'register', [(width, (2, threads, -(-batch // 2)), None,
+                             None)]
     if name == 'lstm2_stacked':
-        threads = sum(min(384, -(-h // 8) * 32) for h in hiddens)
-        return 'general', [(tuple(hiddens), (4, threads, -(-batch // 4)))]
+        h1, h2 = hiddens
+        cluster, rows = expected_cluster('lstm2_stacked_general_kernel',
+                                         (h1, h2))
+        t1, t2 = (warps(-(-h // cluster), 256) for h in (h1, h2))
+        return 'general', [((h1, h2), (4, t1 + t2,
+                                       -(-batch // 4) * cluster), cluster,
+                            rows)]
     directions = 2 if name == 'bidirectional_lstm' else 1
     h = hiddens[0]
-    return 'general', [
-        (h, (4, min(1024, -(-h // 8) * 32), -(-batch // 4) * directions))]
+    cluster, rows = expected_cluster('lstm_general_kernel', (h,))
+    return 'general', [(h, (4, warps(-(-h // cluster), 512),
+                            -(-batch // 4) * cluster * directions), cluster,
+                        rows)]
 
 
-def general_smem(launch, rows):
-    """Shared memory bytes of a general launch keeping ``rows`` rows of
-    each weight matrix: 16 bytes a row and unit it feeds, 48 a unit of
-    state (h twice and c of 4 reads)."""
-    if launch.kernel == 'lstm2_stacked_general_kernel':
-        h1, h2 = launch.hidden
-        return (16 * (min(rows, h1) * (h1 + h2) + min(rows, h2) * h2) +
-                48 * (h1 + h2))
-    return (16 * rows + 48) * launch.hidden
+# the widened preset's general shapes and one past what 8 blocks hold:
+# (case, cluster, rows of each matrix in shared memory)
+CLUSTER_CASES = [
+    (('lstm2_stacked', 1, ((1, 96), (96, 96))), 2, 96),
+    (('lstm_last', 112, ((112, 128),)), 2, 128),
+    (('lstm2_stacked', 1, ((1, 256), (256, 256))), 8, 139)]
 
 
 @pytest.mark.parametrize('case', LSTM_CASES + [
@@ -197,7 +246,9 @@ def general_smem(launch, rows):
     ('lstm_last', 96, ((96, 64),)),
     ('lstm_last', 112, ((112, 128),)),
     ('lstm2_stacked', 1, ((1, 40), (40, 24))),
-    ('lstm2_stacked', 1, ((1, 256), (256, 256)))], ids=case_id)
+    ('lstm2_stacked', 1, ((1, 256), (256, 256))),
+    ('lstm2_stacked', 1, ((1, 96), (96, 96))),
+    ('bidirectional_lstm', 3, ((3, 256), (3, 256)))], ids=case_id)
 def test_plan_picks_the_design(case):
     name, inputs, layers = case
     hiddens = [h for _, h in layers]
@@ -206,17 +257,51 @@ def test_plan_picks_the_design(case):
         plan = klstm.plan(name, batch, inputs, hiddens[0], h2)
         route, launches = expected_plan(name, inputs, layers, batch)
         assert plan.route == route
-        assert [(l.hidden, l.shape) for l in plan.launches] == launches
+        assert [(l.hidden, l.shape, l.cluster, l.smem_rows)
+                for l in plan.launches] == launches
         for launch in plan.launches:
-            if route == 'general':
-                # the weight rows in shared memory and the state fit a
-                # block's shared memory, and as many rows as fit are there
-                used = general_smem(launch, launch.smem_rows)
-                assert used <= klstm.SMEM_BYTES
-                assert launch.smem_rows == max(hiddens) or general_smem(
-                    launch, launch.smem_rows + 1) > klstm.SMEM_BYTES
-            else:
-                assert launch.smem_rows is None
+            if route != 'general':
+                continue
+            widths = launch.hidden if isinstance(launch.hidden, tuple) \
+                else (launch.hidden,)
+            c = launch.cluster
+            # each width's unit ranges partition it, contiguous and within
+            # one unit of each other
+            for h in widths:
+                ranges = [klstm.unit_range(h, c, r) for r in range(c)]
+                assert ranges[0][0] == 0 and ranges[-1][1] == h
+                assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+                sizes = [e - b for b, e in ranges]
+                assert max(sizes) - min(sizes) <= 1
+            # every block's share, and what is allocated, fits
+            assert block_smem(launch.kernel, widths, c, launch.smem_rows) \
+                <= klstm.SMEM_BYTES
+            assert all(block_smem(launch.kernel, widths, c, launch.smem_rows,
+                                  r) <= klstm.SMEM_BYTES for r in range(c))
+            # no smaller portable cluster holds every row; if this one
+            # does not, it is 8 holding as many rows as fit
+            most = max(widths)
+            assert all(block_smem(launch.kernel, widths, smaller, most) >
+                       klstm.SMEM_BYTES for smaller in CLUSTERS
+                       if smaller < c)
+            assert launch.smem_rows == most or (c == 8 and block_smem(
+                launch.kernel, widths, 8, launch.smem_rows + 1) >
+                klstm.SMEM_BYTES)
+
+
+@pytest.mark.parametrize('case,cluster,rows', CLUSTER_CASES,
+                         ids=[case_id(c[0]) for c in CLUSTER_CASES])
+def test_plan_clusters_the_wide_layers(case, cluster, rows):
+    """LSTM(96) x 2 and LSTM(128) of the widened preset run in clusters
+    of 2 blocks that hold every weight row; LSTM(256) x 2 in clusters of
+    8 that hold 139 of its 256 rows, the rest read from device memory."""
+    name, inputs, layers = case
+    hiddens = [h for _, h in layers]
+    launch, = klstm.plan(name, 256, inputs, hiddens[0],
+                         hiddens[1] if name == 'lstm2_stacked' else None
+                         ).launches
+    assert (launch.cluster, launch.smem_rows) == (cluster, rows)
+    assert launch.shape[2] == 64 * cluster
 
 
 def test_shipped_shapes_keep_their_kernels():
