@@ -8,7 +8,7 @@
 namespace {
 
 // the parts of a step
-enum { P_WAIT, P_ZX, P_ROWS, P_SHFL, P_CELL, P_STORE, P_ARRIVE, P_N };
+enum { P_WAIT, P_ZX, P_ROWS, P_SHFL, P_CELL, P_STORE, P_N };
 
 __device__ __forceinline__ void lap(long long& t, long long& acc) {
     const long long now = clock64();
@@ -30,7 +30,7 @@ __device__ __forceinline__ void timed_dot(const float4* w_s, int n, int U,
                                           float (&z)[4], long long& t,
                                           long long (&c)[P_N]) {
     float acc[G_ROWS][4] = {};
-#pragma unroll 4
+#pragma unroll 8
     for (int k = s; k < n; k += G_SPLIT) {
         const float4 w = w_s[k * U + u];
         const float4 hk = h[k];
@@ -81,9 +81,11 @@ clock_general_kernel(const GeneralLayer L, int B, int T, int H,
     const int u0 = unit_begin(H, C, rank);
     const int U = unit_begin(H, C, rank + 1) - u0;
     const int M = most_units(H, C);
-    float4* w_s = reinterpret_cast<float4*>(smem);
-    float* h_s = smem + 4 * (size_t)H * M;
+    StepBarrier sync{reinterpret_cast<unsigned long long*>(smem)};
+    float4* w_s = reinterpret_cast<float4*>(smem + G_BARRIER_BYTES / 4);
+    float* h_s = reinterpret_cast<float*>(w_s + (size_t)H * M);
     float* c_s = h_s + 2 * G_ROWS * H;
+    const unsigned bytes = 4 * G_ROWS * H;
     const int lane = threadIdx.x % 32, s = lane / G_UNITS;
     const int row = cluster_index() * G_ROWS + s;
     const int first = threadIdx.x / 32 * G_UNITS;
@@ -93,14 +95,14 @@ clock_general_kernel(const GeneralLayer L, int B, int T, int H,
     stage_cols(w_s, L.rec, H, H, u0, U);
     for (int i = threadIdx.x; i < G_ROWS * (2 * H + M); i += blockDim.x)
         h_s[i] = 0.0f;
-    cluster_arrive();
+    sync.start(bytes, T > 1 ? bytes : 0);
 
     long long t = clock64();
     for (int step = 0; step < T; ++step) {
         const float4* h_prev = reinterpret_cast<const float4*>(
             h_s + ((step + 1) & 1) * G_ROWS * H);
         float* h_next = h_s + (step & 1) * G_ROWS * H;
-        cluster_wait();
+        sync.enter(step, step + 1 < T ? bytes : 0);
         lap(t, c[P_WAIT]);
         for (int j0 = first; j0 < U; j0 += stride) {
             const int u = min(j0 + lane % G_UNITS, U - 1), j = u0 + u;
@@ -113,16 +115,14 @@ clock_general_kernel(const GeneralLayer L, int B, int T, int H,
                 const float h = general_cell(zx, acc, s, c_s, u);
                 asm volatile("" :: "f"(h));
                 lap(t, c[P_CELL]);
-                store_cluster(h_next + j * G_ROWS + s, h, C);
+                store_cluster(h_next + j * G_ROWS + s, sync.of(step), h, C);
                 if (row < B && step == T - 1)
                     L.out[(size_t)row * L.out_stride + j] = h;
             }
             lap(t, c[P_STORE]);
         }
-        cluster_arrive();
-        lap(t, c[P_ARRIVE]);
     }
-    cluster_wait();
+    sync.finish(T);
     write_clocks(prof, c);
 }
 
@@ -144,7 +144,8 @@ clock_stacked_kernel(const float* __restrict__ x,
     const int b0 = unit_begin(H2, C, rank);
     const int U2 = unit_begin(H2, C, rank + 1) - b0;
     const int M1 = most_units(H1, C), M2 = most_units(H2, C);
-    float4* r1_s = reinterpret_cast<float4*>(smem);
+    StepBarrier sync{reinterpret_cast<unsigned long long*>(smem)};
+    float4* r1_s = reinterpret_cast<float4*>(smem + G_BARRIER_BYTES / 4);
     float4* k2_s = r1_s + (size_t)H1 * M1;
     float4* r2_s = k2_s + (size_t)H1 * M2;
     float* h1_s = reinterpret_cast<float*>(r2_s + (size_t)H2 * M2);
@@ -158,6 +159,9 @@ clock_stacked_kernel(const float* __restrict__ x,
     const int first = lt / 32 * G_UNITS;
     const int stride = (layer2 ? blockDim.x - t1 : t1) / 32 * G_UNITS;
     long long c[P_N] = {};
+    auto bytes = [&](int p) -> unsigned {
+        return 4 * G_ROWS * ((p < T ? H1 : 0) + (p > 0 && p <= T ? H2 : 0));
+    };
 
     stage_cols(r1_s, r1, H1, H1, a0, U1);
     stage_cols(k2_s, k2, H1, H2, b0, U2);
@@ -165,13 +169,13 @@ clock_stacked_kernel(const float* __restrict__ x,
     for (int i = threadIdx.x; i < G_ROWS * (2 * H1 + 2 * H2 + M1 + M2);
          i += blockDim.x)
         h1_s[i] = 0.0f;
-    cluster_arrive();
+    sync.start(bytes(0), bytes(1));
 
     long long t = clock64();
     for (int p = 0; p <= T; ++p) {
         const float4* h1_prev = reinterpret_cast<const float4*>(
             h1_s + ((p + 1) & 1) * G_ROWS * H1);
-        cluster_wait();
+        sync.enter(p, bytes(p + 1));
         lap(t, c[P_WAIT]);
         if (!layer2) {
             if (p < T) {
@@ -187,7 +191,8 @@ clock_stacked_kernel(const float* __restrict__ x,
                         const float h = general_cell(zx, acc, s, c1_s, u);
                         asm volatile("" :: "f"(h));
                         lap(t, c[P_CELL]);
-                        store_cluster(h_next + j * G_ROWS + s, h, C);
+                        store_cluster(h_next + j * G_ROWS + s, sync.of(p), h,
+                                      C);
                     }
                     lap(t, c[P_STORE]);
                 }
@@ -198,26 +203,26 @@ clock_stacked_kernel(const float* __restrict__ x,
             float* h_next = h2_s + ((p + 1) & 1) * G_ROWS * H2;
             for (int j0 = first; j0 < U2; j0 += stride) {
                 const int u = min(j0 + lane % G_UNITS, U2 - 1), j = b0 + u;
-                float zx[4], acc[4];
+                float bq[4], zx[4], acc[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) bq[q] = b2[q * H2 + j];
                 timed_dot(k2_s, H1, U2, u, s, h1_prev, zx, t, c);
 #pragma unroll
-                for (int q = 0; q < 4; ++q) zx[q] += b2[q * H2 + j];
+                for (int q = 0; q < 4; ++q) zx[q] += bq[q];
                 lap(t, c[P_ZX]);
                 timed_dot(r2_s, H2, U2, u, s, h2_prev, acc, t, c);
                 if (j0 + lane % G_UNITS < U2) {
                     const float h = general_cell(zx, acc, s, c2_s, u);
                     asm volatile("" :: "f"(h));
                     lap(t, c[P_CELL]);
-                    store_cluster(h_next + j * G_ROWS + s, h, C);
+                    store_cluster(h_next + j * G_ROWS + s, sync.of(p), h, C);
                     if (p == T && row < B) out[(size_t)row * H2 + j] = h;
                 }
                 lap(t, c[P_STORE]);
             }
         }
-        cluster_arrive();
-        lap(t, c[P_ARRIVE]);
     }
-    cluster_wait();
+    sync.finish(T + 1);
     write_clocks(prof, c);
 }
 
@@ -254,6 +259,7 @@ int clock_stacked(const float* x, const float* k1, const float* b1,
     int package_t1;
     cudaError_t err = stacked_config(B, H1, H2, 1, cluster, H1 > H2 ? H1 : H2,
                                      stream, unused, package_t1, l);
+    // the same shared memory as the package's launch
     if (err != cudaSuccess) return (int)err;
     l.cfg.blockDim = dim3(l.cfg.blockDim.x - package_t1 + t1);
     auto kernel = clock_stacked_kernel<true>;

@@ -1,33 +1,22 @@
 #!/usr/bin/env python3
 """The cluster design of the general LSTM kernels on the card.
 
-    python3 tools/lstm_cluster_study.py [--clock | --variants]
+    python3 tools/lstm_cluster_study.py [--clock]
 
 Needs one CUDA card and the toolkit. Builds the package's kernels (their
 registers and spills printed), runs chip_smoke.py's "kernel shapes" LSTM
 grid (each shape against the plain version) and its widened rows (kernels
 1 to 5 at the widened preset's shapes, timed with their bounds and
-torch.nn.LSTM), then times lstm2_stacked_general_kernel at LSTM(96) x 2,
-[256, 2000], with the package's split of a block's threads between the
-two layers against an even split (csrc/lstm.cu built with
-STACKED_EVEN_SPLIT defined), in turns, outputs held equal.
+torch.nn.LSTM).
 
 ``--clock`` instead builds ``tools/lstm_cluster_clock.cu`` (instrumented
 copies of the two kernels, which include ``csrc/lstm.cu``), holds their
 outputs exactly against the package's kernels and prints the cycles a
 step of each part (lane 0 of each warp, averaged over the warps of a
-layer and the blocks): the cluster barrier's wait, the input term, the
-shared-memory rows, the shuffles, the cell, the h stores to every block
-of the cluster and the barrier's arrive; the stacked kernel with layer 1
-on the package's threads and on as many as layer 2's.
-
-``--variants`` builds ``csrc/lstm.cu`` with each combination of its
-development switches (LSTM_V: units a thread, 1 or 2; LSTM_PREFETCH: the
-next step's input term loaded a step ahead; LSTM_MBAR: the step's h
-signalled on mbarriers by st.async instead of barrier.cluster), holds
-every variant's output at LSTM(96) x 2 [256, 2000] and LSTM(128) [256,
-300] equal to the first's and within 5e-5 of the plain version, and
-times each in turns, forwards then backwards.
+layer and the blocks): the wait on the step's mbarrier, the input term,
+the shared-memory rows, the shuffles, the cell and the h stores to every
+block of the cluster; the stacked kernel with layer 1 on half of layer
+2's threads and on as many.
 """
 
 import ctypes
@@ -48,8 +37,8 @@ import chip_smoke  # noqa: E402
 SEED = 15
 
 
-PARTS = ('cluster wait', 'input term', 'shared-memory rows', 'shuffles',
-         'cell', 'h stores', 'cluster arrive')
+PARTS = ('step barrier wait', 'input term', 'shared-memory rows',
+         'shuffles', 'cell', 'h stores')
 
 
 def report(label, prof, steps, groups):
@@ -93,7 +82,7 @@ def clock(rng):
     launch, = klstm.plan('lstm2_stacked', B, 1, H, H).launches
     want = klstm.lstm2_stacked(p1, p2, xs)
     t1, t2 = klstm.stacked_threads(H, H, launch.cluster)
-    for layer1 in (t1, t2):
+    for layer1 in (t2 // 2, t1):
         out = torch.empty(B, H, device='cuda')
         prof = torch.zeros(launch.shape[2], (layer1 + t2) // 32, len(PARTS),
                            dtype=torch.int64, device='cuda')
@@ -136,103 +125,6 @@ def clock(rng):
     report('LSTM(128)', prof, T, (('all warps', slice(None)),))
 
 
-VARIANTS = [(pf, un, s4) for pf in (0, 1) for un in (2, 4, 8)
-            for s4 in (0, 1)]
-
-
-def variant_library(pf, un, s4):
-    from poreplex_torch.kernels import _build
-    from poreplex_torch.kernels import lstm as klstm
-    out = os.path.join(ROOT, 'build', 'lstm_cluster_study')
-    os.makedirs(out, exist_ok=True)
-    lib = os.path.join(out, 'lstm_p{}_u{}_s{}.so'.format(pf, un, s4))
-    proc = subprocess.run(
-        [_build.nvcc_path()] + _build.flags('lstm.cu') +
-        ['-DLSTM_PREFETCH={}'.format(pf), '-DLSTM_UNROLL={}'.format(un),
-         '-DLSTM_STORE4={}'.format(s4), '-o', lib,
-         os.path.join(_build.CSRC_DIR, 'lstm.cu')],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(proc.stdout + proc.stderr)
-    usage = [line for line in _build.usage_lines(
-        'prefetch {} unroll {} store4 {}'.format(pf, un, s4),
-        proc.stdout + proc.stderr) if 'general' in line]
-    handle = ctypes.CDLL(lib)
-    for name, argtypes in klstm._SIGNATURES.items():
-        getattr(handle, name).argtypes = argtypes
-    return handle, usage
-
-
-def variants(rng):
-    from concurrent.futures import ThreadPoolExecutor
-    from poreplex_torch.kernels import lstm as klstm
-    from poreplex_torch.kernels import _build
-    from poreplex_torch.ops import rnn
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = list(pool.map(lambda c: variant_library(*c), VARIANTS))
-    for _, usage in libs:
-        print('\n'.join(usage))
-    ptr, stream = _build.ptr, _build.stream(torch.device('cuda'))
-
-    B, T, H = 256, 2000, 96
-    p1, p2 = (chip_smoke.random_layer(rng, i, H) for i in (1, H))
-    xs = torch.as_tensor(rng.normal(90, 12, (B, T, 1)).astype(np.float32),
-                         device='cuda')
-    sl, = klstm.plan('lstm2_stacked', B, 1, H, H).launches
-    plain_s = rnn.lstm2_stacked(p1, p2, xs)
-    s_args = [xs.reshape(B, T), p1['kernel'], p1['bias'], p1['recurrent'],
-              p2['kernel'], p2['bias'], p2['recurrent']]
-
-    B2, T2, I, H2 = 256, 300, 112, 128
-    p = chip_smoke.random_layer(rng, I, H2)
-    xs2 = torch.as_tensor(rng.normal(0, 0.5, (B2, T2, I)).astype(np.float32),
-                          device='cuda')
-    gl, = klstm.plan('lstm_last', B2, I, H2).launches
-    plain_g = rnn.lstm(p, xs2, return_sequences=False)
-    xk = torch.matmul(xs2.reshape(B2 * T2, I), p['kernel'])
-
-    runs = []
-    for (lib, _), (pf, un, s4) in zip(libs, VARIANTS):
-        out_s = torch.empty(B, H, device='cuda')
-        out_g = torch.empty(B2, H2, device='cuda')
-
-        def stacked(lib=lib, out=out_s):
-            _build.check(lib.pp_lstm2_stacked_general(
-                *[ptr(a) for a in s_args + [out]], B, T, H, H, 1, sl.cluster,
-                sl.smem_rows, stream), 'stacked')
-
-        def general(lib=lib, out=out_g):
-            _build.check(lib.pp_lstm_general(
-                ptr(xk), ptr(xk), ptr(p['bias']), ptr(p['recurrent']),
-                ptr(xk), ptr(p['bias']), ptr(p['recurrent']), ptr(out), B2,
-                T2, H2, 4 * H2, 1, 0, 0, gl.cluster, gl.smem_rows, stream),
-                'general')
-        stacked()
-        general()
-        torch.cuda.synchronize()
-        runs.append(('prefetch {} unroll {} store4 {}'.format(pf, un, s4),
-                     stacked, general, out_s, out_g))
-    first = runs[0]
-    for label, _, _, out_s, out_g in runs:
-        print('{}: stacked equal to the first variant\'s {}, max abs err vs '
-              'plain {:.3g}; LSTM(128) equal {}, max abs err vs plain '
-              '{:.3g}'.format(
-                  label, torch.equal(out_s, first[3]),
-                  float((out_s - plain_s).abs().max()),
-                  torch.equal(out_g, first[4]),
-                  float((out_g - plain_g).abs().max())))
-    times = {}
-    for label, stacked, general, _, _ in runs + runs[::-1]:
-        times.setdefault(label, []).append((
-            chip_smoke.time_ms(stacked, reps=3),
-            chip_smoke.time_ms(general, reps=5)))
-    for label, ts in times.items():
-        print('{}: LSTM(96) x 2 [256, 2000] {} ms; LSTM(128) [256, 300] '
-              '(no input matmul) {} ms'.format(
-                  label, ', '.join('{:.4f}'.format(a) for a, _ in ts),
-                  ', '.join('{:.4f}'.format(b) for _, b in ts)))
-
-
 def main():
     if not torch.cuda.is_available():
         print('lstm_cluster_study: no CUDA device', file=sys.stderr)
@@ -246,12 +138,6 @@ def main():
     print('\n'.join(_build.usage_lines('lstm.cu', reports['lstm.cu'])))
     print(chip_smoke.card_line())
     rng = np.random.default_rng(SEED)
-    if sys.argv[1:] == ['--variants']:
-        with torch.inference_mode():
-            variants(rng)
-        chip_smoke.check_lstm_shapes(rng)
-        print(chip_smoke.card_line())
-        return 0
     if sys.argv[1:] == ['--clock']:
         with torch.inference_mode():
             clock(rng)
