@@ -40,17 +40,22 @@
    bucket the run used (at least two) against the same analyzer on the
    CPU; every kernel must have been launched on this path; then "kernel
    shapes": the three LSTM wrappers at widths 1, 20, 56, 96, 128 and 256,
-   input widths 1 and 3, and stacked layers of 64 and 32, 32 and 96 units
-   ([37, 61], random weights from a generator of its own, within 5e-5 of
-   the plain versions; each line names the design kernels.lstm.plan
-   chose, whose launch shapes must equal the C side's), both Viterbi
+   input widths 1 and 3, stacked layers of 64 and 32, 32 and 96 units,
+   and past what 8 blocks hold whole a stacked LSTM(1100) x 2 and an
+   LSTM(2100) ([37, 61], random weights from a generator of its own,
+   within 5e-5 of the plain versions; each line names the design
+   kernels.lstm.plan chose, whose launch shapes and cluster sizes must
+   equal the C side's, with the cluster's cudaOccupancyMaxActiveClusters),
+   both Viterbi
    wrappers at 1 to 8 states x 1 to 4 components on random HMMs and on
    the tie HMM at 7 and 8 states ([37, 999], extents, paths and logp equal
    to the plain version's), and kernels 1 to 5 at the widened preset's
    full shapes (simulate.write_widened_preset: the scaler's two LSTM(96)
    at [256, 2000], BiLSTM(56) and LSTM(128) at [256, 300], the 7-state
    3-component extents at [256, 6666], the 8-state 4-component paths at
-   [1024, 1024]) against their plain versions, timed as in step 2;
+   [1024, 1024]) against their plain versions, timed as in step 2; the
+   widened LSTM(96) x 2 and LSTM(128) must have run in clusters of 2
+   blocks or more holding every weight row;
 4. profiles one stage-1 batch and one whole 256-read batch: the device's
    busy share, the ten kernels with the most device time and the port's
    own kernels;

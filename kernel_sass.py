@@ -15,7 +15,11 @@ other branch runs converged whatever each lane's data: the peak
 detector's two frame loops and the Viterbi kernels' forward and backtrace
 loops are such loops, and hold no call. The loops also go to
 ``<out>/kernel_sass.json``. Each kernel's registers and spills
-(``-Xptxas -v``) are printed by instantiation.
+(``-Xptxas -v``) are printed by instantiation, and the general LSTM
+design's instantiations (``lstm_general_kernel``,
+``lstm2_stacked_general_kernel``, compiled for the block sizes
+``kernels/lstm.py``'s plan() picks, at most ``G_MAX_THREADS`` and two
+``G_LAYER_THREADS``) must not spill: the script exits 1 if one does.
 
 ``--lstm-widths`` instead compiles ``csrc/lstm.cu`` with wider lists of the
 register design's widths (``PROBE_WIDTHS``, defined before the source is
@@ -38,6 +42,7 @@ FUNCTION = re.compile(r'Function : (\S+)\n(.*?)(?=Function :|\Z)', re.S)
 INSTRUCTION = re.compile(r'^\s*/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;', re.M)
 BRANCH = re.compile(r'\bBRA(?:\.\S+)?\b.*?(0x[0-9a-f]+)\s*$')
 CALL = re.compile(r'\bCALL\b')
+GENERAL_LSTM = ('lstm_general_kernel', 'lstm2_stacked_general_kernel')
 
 
 def instructions(body):
@@ -76,15 +81,28 @@ def read(text):
             for name, body in FUNCTION.findall(text)}
 
 
-def width_probe(out):
-    """nvcc's resource report of csrc/lstm.cu at PROBE_WIDTHS."""
+def general_lstm_usage(report):
+    """({label: (registers, stack, spill stores, spill loads)} of the
+    general LSTM instantiations in csrc/lstm.cu's -Xptxas -v report, the
+    labels of those that spill)."""
+    from poreplex_torch.kernels import _build
+    usage = {label: u for label, u in _build.ptxas_usage(report).items()
+             if label.split('<')[0] in GENERAL_LSTM}
+    return usage, sorted(label for label, u in usage.items() if u[2] or u[3])
+
+
+def lstm_report(out, widths=None):
+    """nvcc's resource report of csrc/lstm.cu built as the package builds
+    it, with the register design's width lists ``widths`` ({list name:
+    widths}) defined first when given."""
     from poreplex_torch.kernels import _build
     os.makedirs(out, exist_ok=True)
-    source = os.path.join(os.path.abspath(out), 'lstm_widths.cu')
+    source = os.path.join(os.path.abspath(out), 'lstm_{}.cu'.format(
+        'widths' if widths else 'check'))
     with open(source, 'w') as f:
-        for name, widths in PROBE_WIDTHS.items():
+        for name, listed in (widths or {}).items():
             f.write('#define {}(X) {}\n'.format(
-                name, ' '.join('X({})'.format(w) for w in widths)))
+                name, ' '.join('X({})'.format(w) for w in listed)))
         f.write('#include "{}"\n'.format(
             os.path.join(_build.CSRC_DIR, 'lstm.cu')))
     proc = subprocess.run(
@@ -103,12 +121,14 @@ def main():
     opts = parser.parse_args()
     from poreplex_torch.kernels import _build
     if opts.lstm_widths:
-        print('\n'.join(_build.usage_lines('lstm.cu', width_probe(opts.out))))
+        print('\n'.join(_build.usage_lines(
+            'lstm.cu', lstm_report(opts.out, PROBE_WIDTHS))))
         return 0
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), 'cuobjdump')
     os.makedirs(opts.out, exist_ok=True)
     result = {}
-    for source, report in _build.build_all().items():
+    reports = _build.build_all()
+    for source, report in reports.items():
         text = subprocess.run([tool, '-sass', _build.library_path(source)],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -125,7 +145,15 @@ def main():
                       'besides the back edge, {calls} calls'.format(**loop))
     with open(os.path.join(opts.out, 'kernel_sass.json'), 'w') as f:
         json.dump(result, f, indent=1)
-    return 0
+    from poreplex_torch.kernels import lstm as klstm
+    usage, spilling = general_lstm_usage(lstm_report(opts.out))
+    print('general LSTM design (blocks of at most {} and {} threads): {}; '
+          '{}'.format(klstm.G_MAX_THREADS, 2 * klstm.G_LAYER_THREADS,
+                      ', '.join('{} {} registers'.format(label, u[0])
+                                for label, u in sorted(usage.items())),
+                      'spills: ' + ', '.join(spilling) if spilling
+                      else 'no spill'))
+    return 1 if spilling or not usage else 0
 
 
 if __name__ == '__main__':

@@ -28,14 +28,16 @@ designs, which ``plan`` picks from the shapes:
   units' columns of every weight matrix in its shared memory and computes
   their whole dot products, in the same order at any cluster size, and
   writes their new h into every block of the cluster over distributed
-  shared memory; one cluster barrier a step. So no weight is read from
-  device memory in a step, and no sum crosses blocks: what bounds a step
-  is a block's share of the weights read from shared memory, its FMAs and
-  the barrier. Only where even 8 blocks cannot hold every row (LSTM(256)
-  x 2) do a block's first ``smem_rows`` rows sit in shared memory and the
-  rest of its columns come from device memory every step. A cluster that
-  the card cannot schedule (``cudaOccupancyMaxActiveClusters`` 0, checked
-  at the first launch of a shape) raises.
+  shared memory (``st.async`` onto the receiving block's mbarrier, which
+  the next step waits on). So no weight is read from device memory in a
+  step, and no sum crosses blocks: what bounds a step is a block's share
+  of the weights and of h read from shared memory, then the gates and
+  the h's way to the partners. Only where even 8 blocks cannot hold every
+  row (LSTM(256) x 2) do a block's first ``smem_rows`` rows sit in shared
+  memory and the rest of its columns come from device memory every step.
+  A cluster that the card cannot schedule (``cudaOccupancyMaxActiveClusters``
+  0, read at the first launch of a shape) raises; no launch falls back to
+  a smaller cluster.
 """
 
 import collections
@@ -65,7 +67,7 @@ SEQ_HIDDEN = (48, 64)
 LAST_HIDDEN = (48, 64)
 # a block of the register design holds 2 reads; a cluster of the general
 # design G_ROWS reads, and each of its blocks G_SPLIT lanes a unit it owns
-# and G_V units a lane (whole warps), up to G_MAX_THREADS threads
+# (whole warps), up to G_MAX_THREADS threads
 # (G_LAYER_THREADS a layer of the stacked kernel), and at most SMEM_BYTES
 # of shared memory (the H100's opt-in limit): its two step barriers
 # (BARRIER_BYTES), weight rows of 16 bytes a unit it owns, and a layer's
@@ -74,7 +76,6 @@ LAST_HIDDEN = (48, 64)
 ROWS = 2
 G_ROWS = 4
 G_SPLIT = 4
-G_V = 1
 BARRIER_BYTES = 16
 G_MAX_THREADS = 512
 G_LAYER_THREADS = 256
@@ -106,7 +107,7 @@ def _register_width(widths, hidden):
 
 
 def _layer_threads(hidden, most):
-    return min(most, -(-hidden * G_SPLIT // (32 * G_V)) * 32)
+    return min(most, -(-hidden * G_SPLIT // 32) * 32)
 
 
 def unit_range(hidden, cluster, rank):
@@ -120,7 +121,7 @@ def _most_units(hidden, cluster):
     return -(-hidden // cluster)
 
 
-def general_smem(hidden, cluster, rows):
+def _general_smem(hidden, cluster, rows):
     """Shared memory bytes of a block of lstm_general_kernel in a cluster
     of ``cluster`` keeping ``rows`` rows of its units' columns."""
     units = _most_units(hidden, cluster)
@@ -128,7 +129,7 @@ def general_smem(hidden, cluster, rows):
             4 * G_ROWS * (2 * hidden + units))
 
 
-def stacked_smem(hidden1, hidden2, cluster, rows):
+def _stacked_smem(hidden1, hidden2, cluster, rows):
     """Shared memory bytes of a block of lstm2_stacked_general_kernel in
     a cluster of ``cluster`` keeping the first ``rows`` rows of its units'
     columns of r1, k2 and r2 (as far as each has them)."""
@@ -162,17 +163,17 @@ def _cluster_and_rows(hidden, smem, rows):
 
 def _general_launch(batch, hidden, directions=1):
     cluster, rows = _cluster_and_rows(
-        hidden, lambda c, r: general_smem(hidden, c, r), hidden)
+        hidden, lambda c, r: _general_smem(hidden, c, r), hidden)
     blocks = -(-batch // G_ROWS) * cluster * directions
     threads = _layer_threads(_most_units(hidden, cluster), G_MAX_THREADS)
     return Launch('lstm_general_kernel', hidden, (G_ROWS, threads, blocks),
                   rows, cluster)
 
 
-def stacked_threads(hidden1, hidden2, cluster):
+def _stacked_threads(hidden1, hidden2, cluster):
     """(layer 1's, layer 2's) threads of a block of
     lstm2_stacked_general_kernel (csrc/lstm.cu's stacked_threads): each
-    layer G_SPLIT lanes a unit it owns, G_V units a lane."""
+    layer G_SPLIT lanes a unit it owns."""
     return tuple(_layer_threads(_most_units(h, cluster), G_LAYER_THREADS)
                  for h in (hidden1, hidden2))
 
@@ -180,9 +181,9 @@ def stacked_threads(hidden1, hidden2, cluster):
 def _stacked_general_launch(batch, hidden1, hidden2):
     cluster, rows = _cluster_and_rows(
         (hidden1, hidden2),
-        lambda c, r: stacked_smem(hidden1, hidden2, c, r),
+        lambda c, r: _stacked_smem(hidden1, hidden2, c, r),
         max(hidden1, hidden2))
-    threads = sum(stacked_threads(hidden1, hidden2, cluster))
+    threads = sum(_stacked_threads(hidden1, hidden2, cluster))
     return Launch('lstm2_stacked_general_kernel', (hidden1, hidden2),
                   (G_ROWS, threads, -(-batch // G_ROWS) * cluster), rows,
                   cluster)

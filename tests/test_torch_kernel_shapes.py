@@ -304,6 +304,118 @@ def test_plan_clusters_the_wide_layers(case, cluster, rows):
     assert launch.shape[2] == 64 * cluster
 
 
+def block_columns(mat, hidden, first, end):
+    """One block's share of mat [R, 4 hidden]: the four gate columns of
+    units [first, end), every other column zeroed. The share keeps the
+    whole matrix's shape, so that torch.matmul sums each kept column in
+    the same order as on the whole matrix."""
+    keep = torch.zeros(4, hidden, dtype=mat.dtype)
+    keep[:, first:end] = 1
+    return mat * keep.reshape(-1)
+
+
+def blocks_of(hidden, cluster):
+    return [klstm.unit_range(hidden, cluster, r) for r in range(cluster)]
+
+
+def cluster_recurrence(zx, rec, cluster):
+    """ops/rnn.recurrence as a cluster of ``cluster`` blocks runs it:
+    block r computes the pre-activations of its units from its columns of
+    rec and the full h, applies their gates with its own c, and each step
+    gathers h from every block's units. Returns the sequence."""
+    batch, seqlen, _ = zx.shape
+    hidden = rec.shape[0]
+    blocks = blocks_of(hidden, cluster)
+    cols = [block_columns(rec, hidden, a, b) for a, b in blocks]
+    h = zx.new_zeros((batch, hidden))
+    cs = [zx.new_zeros((batch, hidden)) for _ in blocks]
+    hs = []
+    for t in range(seqlen):
+        gathered = torch.empty_like(h)
+        for r, (a, b) in enumerate(blocks):
+            h_r, cs[r] = rnn.lstm_gates(zx[:, t] + torch.matmul(h, cols[r]),
+                                        cs[r])
+            gathered[:, a:b] = h_r[:, a:b]
+        h = gathered
+        hs.append(h)
+    return torch.stack(hs, 1)
+
+
+def cluster_stacked(params1, params2, xs, cluster):
+    """ops/rnn.lstm2_stacked as a cluster of ``cluster`` blocks runs it on
+    the diagonal: in phase p each block computes its layer-1 units' step
+    p and its layer-2 units' step p - 1 from its columns of r1, k2 and r2
+    and the full h1[p - 1] and h2[p - 2], gathered from every block."""
+    zx = rnn.project(params1, xs)
+    batch, seqlen, _ = zx.shape
+    h1w, h2w = params1['recurrent'].shape[0], params2['recurrent'].shape[0]
+    blocks1, blocks2 = blocks_of(h1w, cluster), blocks_of(h2w, cluster)
+    r1 = [block_columns(params1['recurrent'], h1w, a, b) for a, b in blocks1]
+    k2 = [block_columns(params2['kernel'], h2w, a, b) for a, b in blocks2]
+    r2 = [block_columns(params2['recurrent'], h2w, a, b) for a, b in blocks2]
+    h1, h2 = zx.new_zeros((batch, h1w)), zx.new_zeros((batch, h2w))
+    c1 = [torch.zeros_like(h1) for _ in range(cluster)]
+    c2 = [torch.zeros_like(h2) for _ in range(cluster)]
+    for p in range(seqlen + 1):
+        n1, n2 = torch.empty_like(h1), torch.empty_like(h2)
+        for r in range(cluster):
+            if p < seqlen:
+                g, c1[r] = rnn.lstm_gates(
+                    zx[:, p] + torch.matmul(h1, r1[r]), c1[r])
+                a, b = blocks1[r]
+                n1[:, a:b] = g[:, a:b]
+            if p > 0:
+                g, c2[r] = rnn.lstm_gates(
+                    torch.matmul(h1, k2[r]) + params2['bias'] +
+                    torch.matmul(h2, r2[r]), c2[r])
+                a, b = blocks2[r]
+                n2[:, a:b] = g[:, a:b]
+        h1 = n1 if p < seqlen else h1
+        h2 = n2 if p > 0 else h2
+    return h2
+
+
+# (wrapper, input width, widths, cluster: None for the plan's)
+PARTITION_CASES = [
+    ('lstm_last', 3, (128,), None), ('bidirectional_lstm', 3, (96,), None),
+    ('lstm2_stacked', 1, (96, 96), None),
+    ('lstm2_stacked', 1, (256, 256), None),
+    ('lstm_last', 3, (20,), 1), ('lstm_last', 3, (20,), 2),
+    ('lstm_last', 3, (20,), 4), ('lstm_last', 3, (20,), 8),
+    ('lstm2_stacked', 3, (40, 24), 8), ('lstm2_stacked', 1, (32, 96), 4),
+    ('lstm2_stacked', 3, (3, 20), 8)]
+
+
+@pytest.mark.parametrize('name,inputs,widths,cluster', PARTITION_CASES,
+                         ids=['{}-I{}-H{}-C{}'.format(n, i, '-'.join(
+                             map(str, w)), c) for n, i, w, c in
+                             PARTITION_CASES])
+def test_cluster_partition_changes_no_sum(name, inputs, widths, cluster):
+    """The general kernels' split of a layer's units over the blocks of a
+    cluster, modelled in plain PyTorch (each block's units from its own
+    weight columns and the full h, gathered every step), equals
+    ops/rnn.py exactly: the split alone changes no sum."""
+    rng = np.random.RandomState(sum(widths) + inputs)
+    xs = torch.from_numpy(rng.normal(0, 1, (3, 12, inputs)).astype(
+        np.float32))
+    if cluster is None:
+        launch, = klstm.plan(name, 3, inputs, *widths).launches \
+            if name == 'lstm2_stacked' else \
+            klstm.plan(name, 3, inputs, widths[0]).launches
+        cluster = launch.cluster
+    if name == 'lstm2_stacked':
+        p1 = as_torch(random_layer(rng, inputs, widths[0]))
+        p2 = as_torch(random_layer(rng, widths[0], widths[1]))
+        got = cluster_stacked(p1, p2, xs, cluster)
+        want = rnn.lstm2_stacked(p1, p2, xs)
+    else:
+        p = as_torch(random_layer(rng, inputs, widths[0]))
+        got = cluster_recurrence(rnn.project(p, xs), p['recurrent'], cluster)
+        want = rnn.recurrence(rnn.project(p, xs), p['recurrent'])
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
 def test_shipped_shapes_keep_their_kernels():
     """The scaler, BiLSTM and LSTM(64) of the shipped networks run on the
     register kernels at their own widths, unpadded."""
