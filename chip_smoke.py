@@ -47,15 +47,18 @@
    kernels.lstm.plan chose, whose launch shapes and cluster sizes must
    equal the C side's, with the cluster's cudaOccupancyMaxActiveClusters),
    both Viterbi
-   wrappers at 1 to 8 states x 1 to 4 components on random HMMs and on
-   the tie HMM at 7 and 8 states ([37, 999], extents, paths and logp equal
-   to the plain version's), and kernels 1 to 5 at the widened preset's
-   full shapes (simulate.write_widened_preset: the scaler's two LSTM(96)
+   wrappers at 1 to 8 states x 1 to 5 components on random HMMs (every
+   instantiation, and the loop over K), at 3 and 8 states x 128
+   components, and on the tie HMM at 7 and 8 states ([37, 999], extents,
+   paths and logp equal to the plain version's; each launch shape and
+   dynamic shared memory equal to the C side's), and kernels 1 to 5 at the
+   widened preset's full shapes (simulate.write_widened_preset: the scaler's two LSTM(96)
    at [256, 2000], BiLSTM(56) and LSTM(128) at [256, 300], the 7-state
    3-component extents at [256, 6666], the 8-state 4-component paths at
    [1024, 1024]) against their plain versions, timed as in step 2; the
    widened LSTM(96) x 2 and LSTM(128) must have run in clusters of 2
-   blocks or more holding every weight row;
+   blocks or more holding every weight row, and the widened Viterbis
+   their unrolled <8,3> and <8,4> instantiations on the general design;
 4. profiles one stage-1 batch and one whole 256-read batch: the device's
    busy share, the ten kernels with the most device time and the port's
    own kernels;
@@ -70,8 +73,8 @@
    exit with 0; then the "session, widened preset": the same reads
    through commandline.main with -c the widened preset, where every
    wrapper launches on the widened kernels alone (kernels.instantiations:
-   the general LSTM design, bilstm_kernel<64>, the 8-state Viterbis with
-   the loop over components, the peak detector and the DP), prints
+   the general LSTM design, bilstm_kernel<64>, the 8-state Viterbis
+   unrolled for 3 and 4 components, the peak detector and the DP), prints
    reads/s beside the shipped session's, and holds its first reads
    against the port's CPU session on that preset (summary rows and FASTQ
    records equal; stage 1's extents, QC and demux decisions exact,
@@ -449,10 +452,16 @@ def viterbi_row(name, x, lengths, params):
     from poreplex_torch.ops import viterbi as vit_ops
     batch, seqlen = x.shape
     nstates, ncomp = params[2].shape
-    pl, launch = kvit.plan(nstates, ncomp, batch), kvit.launch_shape(batch)
-    if pl.launch != launch:
-        raise AssertionError('{}: plan launches {}, the C side {}'.format(
-            name, pl.launch, launch))
+    pl = kvit.plan(nstates, ncomp, batch)
+    launch, smem, design = kvit.launch_shape(batch, nstates, ncomp)
+    if (pl.launch, pl.smem, pl.design) != (launch, smem, design):
+        raise AssertionError('{}: plan launches {} with {} bytes of dynamic '
+                             'shared memory on the {} design, the C side {} '
+                             'with {} on the {}'.format(
+                                 name, pl.launch, pl.smem, pl.design, launch,
+                                 smem, design))
+    function = kvit.function('viterbi_extents_kernel' if name ==
+                             'viterbi_extents' else 'viterbi_path_kernel', pl)
     kernel = lambda: getattr(kvit, name)(x, lengths, *params)
     got = kernel()
     ref, plain_ms = timed(lambda: getattr(vit_ops, name)(x, lengths, *params))
@@ -478,10 +487,12 @@ def viterbi_row(name, x, lengths, params):
         flops=int(lengths.clamp(max=seqlen).sum()) *
         viterbi_frame_ops(nstates, ncomp),
         nbytes=x.numel() * 4 + batch * 4 + out + batch * 4,
-        steps=seqlen, step_unit='frame', launch=launch,
-        design='{}_kernel<{},{}> for {} states, {} components'.format(
-            'viterbi_extents' if name == 'viterbi_extents' else
-            'viterbi_path', pl.states, pl.components, nstates, ncomp))
+        steps=seqlen, step_unit='frame', launch=launch, function=function,
+        viterbi_design=design,
+        design='{} for {} states, {} components, the {} design{}'.format(
+            function, nstates, ncomp, design,
+            ', {} bytes of dynamic shared memory'.format(smem) if smem
+            else ''))
 
 
 def check_viterbi(engine, rng, ragged=RAGGED):
@@ -681,8 +692,11 @@ def check_unsplit_viterbi(unsplitmodel, rng, shapes):
 
 # the "kernel shapes" grid: every LSTM wrapper at each width and input
 # width, the stacked one also at layers of unequal widths, at [37, 61]
-# (within LSTM_ATOL); both Viterbis at 1 to 8 states x 1 to 4 components,
-# and the tie HMM at 7 and 8 states, at [37, 999] (exact, logp included)
+# (within LSTM_ATOL); both Viterbis at 1 to 8 states x 1 to 5 components
+# (every instantiation: K 1 to 4 unrolled, 5 the loop over K), at 3 and 8
+# states x the most components the loop takes (its dynamic shared memory
+# past 48 KB), and the tie HMM at 7 and 8 states, at [37, 999] (exact,
+# logp included)
 SHAPE_HIDDEN = (1, 20, 56, 96, 128, 256)
 SHAPE_INPUTS = (1, 3)
 SHAPE_STACKED_PAIRS = ((64, 32), (32, 96))
@@ -690,7 +704,8 @@ SHAPE_STACKED_PAIRS = ((64, 32), (32, 96))
 # that take two passes over their units (wrapper, input width, widths)
 SHAPE_WIDEST = (('lstm2_stacked', 1, 1100, 1100), ('lstm_last', 3, 2100, None))
 SHAPE_STATES = tuple(range(1, 9))
-SHAPE_COMPONENTS = (1, 2, 3, 4)
+SHAPE_COMPONENTS = (1, 2, 3, 4, 5)
+SHAPE_MOST_COMPONENTS_STATES = (3, 8)
 SHAPE_BATCH = 37
 SHAPE_LSTM_T = 61
 SHAPE_VITERBI_T = 999
@@ -809,6 +824,8 @@ def check_viterbi_shapes(rng):
     from poreplex_torch.ops import viterbi as vit_ops
     hmms = [('random', simulate.random_hmm(rng, s, k))
             for s in SHAPE_STATES for k in SHAPE_COMPONENTS]
+    hmms += [('random', simulate.random_hmm(rng, s, kvit.MAX_COMPONENTS))
+             for s in SHAPE_MOST_COMPONENTS_STATES]
     hmms += [('tie', simulate.tie_hmm(k, s)) for s in (7, 8)
              for k in SHAPE_COMPONENTS]
     designs = {}
@@ -842,10 +859,11 @@ def check_viterbi_shapes(rng):
         key = (pl.states, pl.components)
         designs[key] = designs.get(key, 0) + 1
     log('kernel shapes: viterbi_extents and viterbi exact (extents, paths, '
-        'logp) at {} HMMs of 1 to 8 states x 1 to 4 components and the tie '
-        'HMM at 7 and 8 states, [{}, {}]; by instantiation <states, '
-        'components (0: any)>: {}'.format(
-            len(hmms), SHAPE_BATCH, SHAPE_VITERBI_T,
+        'logp) at {} HMMs of 1 to 8 states x 1 to 5 components, {} states x '
+        '{} components and the tie HMM at 7 and 8 states, [{}, {}]; by '
+        'instantiation <states, components (0: any)>: {}'.format(
+            len(hmms), ' and '.join(map(str, SHAPE_MOST_COMPONENTS_STATES)),
+            kvit.MAX_COMPONENTS, SHAPE_BATCH, SHAPE_VITERBI_T,
             json.dumps({'<{},{}>'.format(*k): v
                         for k, v in sorted(designs.items())})))
     return designs
@@ -871,9 +889,9 @@ WIDENED_ROWS = {
                           'preset, BiLSTM(56))',
     'lstm_last': 'lstm_last: lstm_general_kernel (widened preset, '
                  'LSTM(128))',
-    'viterbi_extents': 'viterbi_extents: viterbi_extents_kernel<8,0> '
+    'viterbi_extents': 'viterbi_extents: viterbi_extents_kernel<8,3> '
                        '(widened preset, 7 states, K 3)',
-    'viterbi': 'viterbi: viterbi_path_kernel<8,0> (widened preset, 8 '
+    'viterbi': 'viterbi: viterbi_path_kernel<8,4> (widened preset, 8 '
                'states, K 4)',
 }
 
@@ -893,6 +911,7 @@ def time_widened(preset, rng):
     for row in rows:
         row['json_name'] = WIDENED_ROWS[row['name']]
     check_widened_clusters(rows)
+    check_widened_viterbis(rows)
     return rows
 
 
@@ -920,6 +939,31 @@ def check_widened_clusters(rows):
             '{} at once), all {} rows of each matrix in shared memory'.format(
                 row['json_name'], row['cluster'], row['max_clusters'],
                 max(widths)))
+
+
+# the widened rows of the Viterbis: the unrolled instantiation each must
+# run on the general design
+WIDENED_VITERBIS = {'viterbi_extents': 'viterbi_extents_kernel<8,3>',
+                    'viterbi': 'viterbi_path_kernel<8,4>'}
+
+
+def check_widened_viterbis(rows):
+    """Fails unless the widened 7-state K 3 extents and 8-state K 4 paths
+    ran their unrolled instantiations on the general design (a worker lane
+    a state, as the C side reports it), not the loop over K or the shipped
+    design."""
+    for row in rows:
+        want = WIDENED_VITERBIS.get(row['name'])
+        if want is None:
+            continue
+        if row['function'] != want or row['viterbi_design'] != 'general':
+            raise AssertionError('{} at {}: ran {} on the {} design, not {} '
+                                 'on the general one'.format(
+                                     row['json_name'], row['shape'],
+                                     row['function'], row['viterbi_design'],
+                                     want))
+        log('kernel shapes: {} ran {} on the general design (a worker lane '
+            'a state)'.format(row['json_name'], want))
 
 
 def check_kernel_shapes(rng, preset):
@@ -1428,11 +1472,11 @@ def session_through_cli(config, results, reads, main_outdir, card):
 # other: the scaler's two LSTM(96) in one launch and the LSTM(128) on the
 # general design (the scaler's layer 1 folds its width-1 input), BiLSTM(56)
 # on the register design at 64, the 7- and 8-state HMMs on the 8-state
-# kernels with a loop over their 3 and 4 components
+# kernels unrolled for their 3 and 4 components
 WIDENED_FUNCTIONS = ('lstm2_stacked_general_kernel<true>',
                      'lstm_general_kernel<false>',
-                     'bilstm_kernel<64>', 'viterbi_extents_kernel<8,0>',
-                     'viterbi_path_kernel<8,0>', 'peaks_kernel', 'dp_kernel')
+                     'bilstm_kernel<64>', 'viterbi_extents_kernel<8,3>',
+                     'viterbi_path_kernel<8,4>', 'peaks_kernel', 'dp_kernel')
 # reads of the widened session held against the port's CPU session
 WIDENED_CPU_READS = 4
 # the generator of the kernel-shapes phase, apart from the main path's

@@ -19,7 +19,16 @@ loops are such loops, and hold no call. The loops also go to
 design's instantiations (``lstm_general_kernel``,
 ``lstm2_stacked_general_kernel``, compiled for the block sizes
 ``kernels/lstm.py``'s plan() picks, at most ``G_MAX_THREADS`` and two
-``G_LAYER_THREADS``) must not spill: the script exits 1 if one does.
+``G_LAYER_THREADS``) and every Viterbi instantiation
+(``viterbi_extents_kernel``, ``viterbi_path_kernel``) must not spill, every
+instantiation of the Viterbis' general design (all but the shipped HMMs'
+``<6,1>`` and ``<6,2>``, which keep their registers) must fit four blocks
+an SM in registers (the 512 blocks of 1,024 windows in one wave:
+``viterbi_register_limit``), and
+each Viterbi instantiation's forward and backtrace step loops (the chain
+warp's: maxima or shifts of values in shared memory, nothing from device
+memory, no special function; ``step_loops``) must be found and hold no
+branch besides the back edge and no call: the script exits 1 otherwise.
 
 ``--lstm-widths`` instead compiles ``csrc/lstm.cu`` with wider lists of the
 register design's widths (``PROBE_WIDTHS``, defined before the source is
@@ -43,6 +52,10 @@ INSTRUCTION = re.compile(r'^\s*/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;', re.M)
 BRANCH = re.compile(r'\bBRA(?:\.\S+)?\b.*?(0x[0-9a-f]+)\s*$')
 CALL = re.compile(r'\bCALL\b')
 GENERAL_LSTM = ('lstm_general_kernel', 'lstm2_stacked_general_kernel')
+VITERBI = ('viterbi_extents_kernel', 'viterbi_path_kernel')
+# opcodes that keep a loop out of the Viterbi chain's step loops: device
+# memory and the special-function unit (the workers' loops have them)
+OFF_CHAIN = {'LDG', 'STG', 'LDGSTS', 'RED', 'ATOM', 'MUFU'}
 
 
 def instructions(body):
@@ -50,11 +63,11 @@ def instructions(body):
     return [(int(a, 16), text) for a, text in INSTRUCTION.findall(body)]
 
 
-def innermost_loops(code):
-    """The loops of [(address, text)] that hold no other loop: each a dict
-    of its first and last address (the back edge), its instructions, its
-    float compares, its branches other than the back edge and its
-    calls."""
+def innermost_bodies(code):
+    """[(dict, body)] of the loops of [(address, text)] that hold no other
+    loop: the dict of its first and last address (the back edge), its
+    instructions, its float compares, its branches other than the back
+    edge and its calls; the body its [(address, text)]."""
     targets = {}
     for address, text in code:
         m = BRANCH.search(text)
@@ -67,12 +80,68 @@ def innermost_loops(code):
                for s, e in loops):
             continue
         body = [(a, text) for a, text in code if start <= a <= end]
-        found.append(dict(
+        found.append((dict(
             first=hex(start), last=hex(end), instructions=len(body),
             float_compares=sum('FSETP' in text for _, text in body),
             inner_branches=sum(a in targets for a, _ in body if a != end),
-            calls=sum(bool(CALL.search(text)) for _, text in body)))
+            calls=sum(bool(CALL.search(text)) for _, text in body)), body))
     return found
+
+
+def innermost_loops(code):
+    """The dicts of innermost_bodies(code)."""
+    return [loop for loop, _ in innermost_bodies(code)]
+
+
+def opcode(text):
+    """'LDS' for '@!P0 LDS.128 R4, [R2]'."""
+    words = text.split()
+    if words and words[0].startswith('@'):
+        words = words[1:]
+    return words[0].split('.')[0] if words else ''
+
+
+def loop_kind(body):
+    """'forward' for a loop of the Viterbi chain's forward steps (float
+    maxima, FMNMX, and no float compare, of values in shared memory),
+    'backtrace' for one of its backtrace steps (shifts of words in shared
+    memory stored back there), None for any other loop: one that touches
+    device memory or the special-function unit is the workers'."""
+    ops = {opcode(text) for _, text in body}
+    if ops & OFF_CHAIN:
+        return None
+    if 'FMNMX' in ops:
+        return 'forward' if 'FSETP' not in ops else None
+    if 'SHF' in ops and 'STS' in ops:
+        return 'backtrace'
+    return None
+
+
+def step_loops(text):
+    """{Viterbi kernel label: {'forward': [loop], 'backtrace': [loop]}} of
+    a cuobjdump -sass listing, each loop a dict of innermost_bodies."""
+    from poreplex_torch.kernels import _build
+    found = {}
+    for name, body in FUNCTION.findall(text):
+        label = _build.kernel_label(name)
+        if label.split('<')[0] not in VITERBI:
+            continue
+        kinds = found.setdefault(label, {'forward': [], 'backtrace': []})
+        for loop, code in innermost_bodies(instructions(body)):
+            kind = loop_kind(code)
+            if kind:
+                kinds[kind].append(loop)
+    return found
+
+
+def unclean_step_loops(found):
+    """The Viterbi kernels of step_loops(...) missing a forward or a
+    backtrace loop, or holding a branch besides a back edge or a call in
+    one."""
+    return sorted(label for label, kinds in found.items()
+                  if not kinds['forward'] or not kinds['backtrace'] or any(
+                      loop['inner_branches'] or loop['calls']
+                      for loops in kinds.values() for loop in loops))
 
 
 def read(text):
@@ -81,33 +150,41 @@ def read(text):
             for name, body in FUNCTION.findall(text)}
 
 
-def general_lstm_usage(report):
+def viterbi_register_limit(blocks=4, registers=65536, unit=8):
+    """The most registers a thread of a Viterbi block may take for
+    ``blocks`` blocks an SM: an SM's ``registers`` over the blocks'
+    threads, allocated ``unit`` a thread at a time."""
+    from poreplex_torch.kernels import viterbi as kvit
+    return registers // (blocks * kvit.THREADS) // unit * unit
+
+
+def usage_of(report, kernels):
     """({label: (registers, stack, spill stores, spill loads)} of the
-    general LSTM instantiations in csrc/lstm.cu's -Xptxas -v report, the
-    labels of those that spill)."""
+    instantiations of ``kernels`` in an -Xptxas -v report, the labels of
+    those that spill)."""
     from poreplex_torch.kernels import _build
     usage = {label: u for label, u in _build.ptxas_usage(report).items()
-             if label.split('<')[0] in GENERAL_LSTM}
+             if label.split('<')[0] in kernels}
     return usage, sorted(label for label, u in usage.items() if u[2] or u[3])
 
 
-def lstm_report(out, widths=None):
-    """nvcc's resource report of csrc/lstm.cu built as the package builds
-    it, with the register design's width lists ``widths`` ({list name:
-    widths}) defined first when given."""
+def source_report(out, source, widths=None):
+    """nvcc's resource report of csrc/``source`` built as the package
+    builds it, with the register design's width lists ``widths`` ({list
+    name: widths}) defined first when given."""
     from poreplex_torch.kernels import _build
     os.makedirs(out, exist_ok=True)
-    source = os.path.join(os.path.abspath(out), 'lstm_{}.cu'.format(
-        'widths' if widths else 'check'))
-    with open(source, 'w') as f:
+    path = os.path.join(os.path.abspath(out), '{}_{}.cu'.format(
+        os.path.splitext(source)[0], 'widths' if widths else 'check'))
+    with open(path, 'w') as f:
         for name, listed in (widths or {}).items():
             f.write('#define {}(X) {}\n'.format(
                 name, ' '.join('X({})'.format(w) for w in listed)))
         f.write('#include "{}"\n'.format(
-            os.path.join(_build.CSRC_DIR, 'lstm.cu')))
+            os.path.join(_build.CSRC_DIR, source)))
     proc = subprocess.run(
-        [_build.nvcc_path()] + _build.flags('lstm.cu') +
-        ['-o', source[:-3] + '.so', source], capture_output=True, text=True)
+        [_build.nvcc_path()] + _build.flags(source) +
+        ['-o', path[:-3] + '.so', path], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError('nvcc failed:\n' + proc.stdout + proc.stderr)
     return proc.stdout + proc.stderr
@@ -122,11 +199,11 @@ def main():
     from poreplex_torch.kernels import _build
     if opts.lstm_widths:
         print('\n'.join(_build.usage_lines(
-            'lstm.cu', lstm_report(opts.out, PROBE_WIDTHS))))
+            'lstm.cu', source_report(opts.out, 'lstm.cu', PROBE_WIDTHS))))
         return 0
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), 'cuobjdump')
     os.makedirs(opts.out, exist_ok=True)
-    result = {}
+    result, steps = {}, {}
     reports = _build.build_all()
     for source, report in reports.items():
         text = subprocess.run([tool, '-sass', _build.library_path(source)],
@@ -136,6 +213,7 @@ def main():
         with open(os.path.join(opts.out, name + '.sass'), 'w') as f:
             f.write(text)
         print('\n'.join(_build.usage_lines(source, report)))
+        steps.update(step_loops(text))
         for kernel, loops in read(text).items():
             result[kernel] = loops
             print(kernel)
@@ -146,14 +224,43 @@ def main():
     with open(os.path.join(opts.out, 'kernel_sass.json'), 'w') as f:
         json.dump(result, f, indent=1)
     from poreplex_torch.kernels import lstm as klstm
-    usage, spilling = general_lstm_usage(lstm_report(opts.out))
+    usage, spilling = usage_of(source_report(opts.out, 'lstm.cu'),
+                               GENERAL_LSTM)
     print('general LSTM design (blocks of at most {} and {} threads): {}; '
           '{}'.format(klstm.G_MAX_THREADS, 2 * klstm.G_LAYER_THREADS,
                       ', '.join('{} {} registers'.format(label, u[0])
                                 for label, u in sorted(usage.items())),
                       'spills: ' + ', '.join(spilling) if spilling
                       else 'no spill'))
-    return 1 if spilling or not usage else 0
+    vusage, vspilling = usage_of(source_report(opts.out, 'viterbi.cu'),
+                                 VITERBI)
+    from poreplex_torch.kernels import viterbi as kvit
+    limit = viterbi_register_limit()
+    shipped = ['<{},{}>'.format(*k) for k in kvit.SHIPPED]
+    vwide = sorted(label for label, u in vusage.items()
+                   if u[0] > limit and label[label.index('<'):] not in shipped)
+    print('Viterbi instantiations: {}; {}; {}'.format(
+        ', '.join('{} {} registers'.format(label, u[0])
+                  for label, u in sorted(vusage.items())),
+        'spills: ' + ', '.join(vspilling) if vspilling else 'no spill',
+        'general design past {} registers (fewer than four blocks an SM): '
+        '{}'.format(limit, ', '.join(vwide)) if vwide else
+        'the general design\'s within {} registers (four blocks an SM)'.format(
+            limit)))
+    for label, kinds in sorted(steps.items()):
+        print('{}: {}'.format(label, '; '.join(
+            '{} step loops {}'.format(kind, ', '.join(
+                '{first}..{last} ({inner_branches} branches besides the back '
+                'edge, {calls} calls)'.format(**loop) for loop in loops)
+                or 'not found') for kind, loops in kinds.items())))
+    unclean = unclean_step_loops(steps)
+    print('Viterbi step loops: {}'.format(
+        'not found or not clean in ' + ', '.join(unclean) if unclean else
+        'every instantiation\'s forward and backtrace loops found, with no '
+        'branch besides the back edge and no call'))
+    failed = (spilling or not usage or vspilling or vwide or not vusage or
+              unclean or not steps)
+    return 1 if failed else 0
 
 
 if __name__ == '__main__':

@@ -9,9 +9,10 @@ which run for CPU tensors:
   viterbi          (path [B, T] int64, logp [B]), the decoded state of every
                    frame (the unsplit-read HMM's windows)
 
-The kernels take HMMs of 1 to 8 states with any number of mixture
-components, as the TPU kernels do; ``plan`` gives the instantiation an HMM
-runs on. More than 8 states raise ``ValueError`` before any launch.
+The kernels take HMMs of 1 to 8 states with 1 to ``MAX_COMPONENTS``
+mixture components; ``plan`` gives the instantiation an HMM runs on and
+its launch. More states or components raise ``ValueError`` before any
+launch.
 """
 
 import collections
@@ -27,58 +28,72 @@ _I = ctypes.c_int
 _SIGNATURES = {
     'pp_viterbi_extents': [_P] * 11 + [_I, _I, _I, _I, _P],
     'pp_viterbi_path': [_P] * 10 + [_I, _I, _I, _I, _P],
-    'pp_viterbi_launch_shape': [_I, _P],
+    'pp_viterbi_launch_shape': [_I, _I, _I, _P],
 }
 MAX_STATES = 8
 # the kernels' instantiations: states (an HMM of fewer is padded with inert
-# states), and components (any other count runs a loop over them, 0 here)
+# states), and components (any other count up to MAX_COMPONENTS runs a loop
+# over them, 0 here, with its parameters and a scratch in dynamic shared
+# memory)
 PADDED_STATES = (6, 8)
-UNROLLED_COMPONENTS = (1, 2)
-# a block: reads, threads (one chain warp and four worker warps)
+UNROLLED_COMPONENTS = (1, 2, 3, 4)
+MAX_COMPONENTS = 128
+# a block: reads, threads (one chain warp and four worker warps); the
+# shipped HMMs' instantiations (6 states, K 1 and 2) keep their design,
+# every other one runs the general design (a worker lane a state)
 READS = 2
 THREADS = 160
+WORKERS = THREADS - 32
+SHIPPED = ((6, 1), (6, 2))
+DESIGNS = ('shipped', 'general')
 
-Plan = collections.namedtuple('Plan', 'states components launch')
+Plan = collections.namedtuple('Plan', 'states components design launch smem')
 
 
 def plan(nstates, ncomp, batch):
     """The instantiation and launch of either kernel for an HMM of
     ``nstates`` states with ``ncomp`` components over ``batch`` reads:
     Plan(states it is padded to, components it is unrolled for (0: a loop
-    over any count), (reads per block, threads per block, blocks)).
+    over any count), design ('shipped' or 'general'), (reads per block,
+    threads per block, blocks), dynamic shared memory bytes a block).
     Raises ValueError for a shape no kernel takes."""
     if not 1 <= nstates <= MAX_STATES:
         raise ValueError('no Viterbi kernel for {} states (1 to {})'.format(
             nstates, MAX_STATES))
-    if ncomp < 1:
-        raise ValueError('no Viterbi kernel for {} components'.format(ncomp))
+    if not 1 <= ncomp <= MAX_COMPONENTS:
+        raise ValueError('no Viterbi kernel for {} components (1 to '
+                         '{})'.format(ncomp, MAX_COMPONENTS))
     if batch < 1:
         raise ValueError('empty batch')
     states = min(s for s in PADDED_STATES if s >= nstates)
     components = ncomp if ncomp in UNROLLED_COMPONENTS else 0
-    return Plan(states, components,
-                (READS, THREADS, (batch + READS - 1) // READS))
+    design = 'shipped' if (states, components) in SHIPPED else 'general'
+    # K = 0: mu, sigma and the constant [states, ncomp] and a scratch of
+    # ncomp floats a worker
+    smem = 4 * ncomp * (3 * states + WORKERS) if components == 0 else 0
+    return Plan(states, components, design,
+                (READS, THREADS, (batch + READS - 1) // READS), smem)
+
+
+def function(kernel, pl):
+    """The kernel function and instantiation of plan ``pl``:
+    ``'viterbi_path_kernel<8,4>'``."""
+    return '{}<{},{}>'.format(kernel, pl.states, pl.components)
 
 
 def _lib():
     return _build.library('viterbi.cu', _SIGNATURES)
 
 
-def launch_shape(batch):
-    """(reads per block, threads per block, blocks) of either kernel for
-    ``batch`` reads."""
-    shape = (ctypes.c_int * 3)()
-    _build.check(_lib().pp_viterbi_launch_shape(batch,
+def launch_shape(batch, nstates, ncomp):
+    """((reads per block, threads per block, blocks), dynamic shared
+    memory bytes, design) of either kernel for ``batch`` reads of an HMM
+    of ``nstates`` states and ``ncomp`` components, from the C side."""
+    shape = (ctypes.c_int * 5)()
+    _build.check(_lib().pp_viterbi_launch_shape(batch, nstates, ncomp,
                                                 ctypes.addressof(shape)),
                  'viterbi')
-    return tuple(shape)
-
-
-def _function(kernel, mus):
-    """The kernel function and instantiation that runs an HMM of mus'
-    [S, K]."""
-    pl = plan(mus.shape[0], mus.shape[1], 1)
-    return '{}<{},{}>'.format(kernel, pl.states, pl.components)
+    return tuple(shape[:3]), shape[3], DESIGNS[shape[4]]
 
 
 def _inputs(name, x, lengths, log_start, log_trans, mus, sigmas, logws):
@@ -90,10 +105,11 @@ def _inputs(name, x, lengths, log_start, log_trans, mus, sigmas, logws):
     nstates, ncomp = mus.shape
     if batch == 0 or seqlen == 0:
         raise ValueError('{}: empty batch or sequence'.format(name))
-    if not 1 <= nstates <= MAX_STATES or ncomp < 1:
+    if not 1 <= nstates <= MAX_STATES or not 1 <= ncomp <= MAX_COMPONENTS:
         raise ValueError('{}: no kernel for {} states x {} components (1 to '
-                         '{} states)'.format(name, nstates, ncomp,
-                                             MAX_STATES))
+                         '{} states, 1 to {} components)'.format(
+                             name, nstates, ncomp, MAX_STATES,
+                             MAX_COMPONENTS))
     if (tuple(log_start.shape) != (nstates,) or
             tuple(log_trans.shape) != (nstates, nstates) or
             tuple(sigmas.shape) != (nstates, ncomp) or
@@ -130,7 +146,8 @@ def viterbi_extents(x, lengths, log_start, log_trans, mus, sigmas, logws):
             p(const), p(bp), p(first), p(last), p(logp), batch, seqlen,
             nstates, ncomp, _build.stream(x.device))
     _build.check(code, 'viterbi_extents')
-    count('viterbi_extents', _function('viterbi_extents_kernel', mus))
+    count('viterbi_extents', function('viterbi_extents_kernel',
+                                      plan(nstates, ncomp, batch)))
     return first, last, last >= 0, logp
 
 
@@ -156,5 +173,6 @@ def viterbi(x, lengths, log_start, log_trans, mus, sigmas, logws):
             p(const), p(bp), p(path), p(logp), batch, seqlen, nstates,
             ncomp, _build.stream(x.device))
     _build.check(code, 'viterbi')
-    count('viterbi', _function('viterbi_path_kernel', mus))
+    count('viterbi', function('viterbi_path_kernel',
+                              plan(nstates, ncomp, batch)))
     return path, logp

@@ -8,8 +8,9 @@ tensors, which take the kernel path without a card.
 
 LSTMs: B = 3, T = 50, H in {1, 20, 56, 96, 128}, input width 1 and 3, and
 stacked layers of unequal widths; within 5e-5 absolute (the bound of
-tests/test_torch_rnn.py). Viterbi: 1, 3, 7 and 8 states x 1, 3 and 4
-components, and the tie HMM at 7 and 8 states; paths and extents exactly
+tests/test_torch_rnn.py). Viterbi: 1, 3, 7 and 8 states x 1, 3, 4 and 5
+components (5: the kernels' loop over K), and the tie HMM at 7 and 8
+states; paths and extents exactly
 equal, logp within 1e-6 relative (float32 holds a logp of some -300 to
 3e-5)."""
 
@@ -32,7 +33,7 @@ HIDDEN = (1, 20, 56, 96, 128)
 INPUTS = (1, 3)
 STACKED_PAIRS = ((64, 32), (32, 96))
 STATES = (1, 3, 7, 8)
-COMPONENTS = (1, 3, 4)
+COMPONENTS = (1, 3, 4, 5)
 
 
 def spread(fan_in):
@@ -532,12 +533,29 @@ def test_plain_viterbi_matches_pallas(nstates, ncomp, tie):
         assert not (path == 2).any() and (path == 1).any()
 
 
+def expected_viterbi_plan(nstates, ncomp, batch):
+    """States pad to the 6- or 8-state kernels, 1 to 4 components have
+    their own instantiations and more the loop over K (0); the shipped
+    HMMs' <6,1> and <6,2> keep their design, every other instantiation
+    runs the general one; a block is 2 reads, one chain warp and four
+    worker warps; the loop's parameters (mu, sigma, the constant,
+    [states, K]) and a scratch of K floats a worker (128) are dynamic
+    shared memory. Returns (states, components, design, launch, smem
+    bytes)."""
+    states = 6 if nstates <= 6 else 8
+    components = ncomp if ncomp <= 4 else 0
+    design = 'shipped' if (states, components) in ((6, 1), (6, 2)) else \
+        'general'
+    smem = 4 * ncomp * (3 * states + 128) if components == 0 else 0
+    return states, components, design, (2, 160, -(-batch // 2)), smem
+
+
 @pytest.mark.parametrize('nstates', range(1, 10))
-@pytest.mark.parametrize('ncomp', (1, 2, 3, 4))
+@pytest.mark.parametrize('ncomp', (1, 2, 3, 4, 5))
 def test_viterbi_plan_and_wrappers(nstates, ncomp):
-    """States pad to the 6- or 8-state kernels, 1 and 2 components have
-    their own and more a loop; on 'meta' tensors the wrappers take every
-    shape up to the launch, and refuse 9 states before it."""
+    """plan() names the instantiation and its launch (expected_viterbi_plan);
+    on 'meta' tensors the wrappers take every shape up to the launch, and
+    refuse 9 states before it."""
     meta = dict(device='meta', dtype=torch.float32)
     params = [torch.empty(nstates, **meta),
               torch.empty(nstates, nstates, **meta)] + \
@@ -552,12 +570,33 @@ def test_viterbi_plan_and_wrappers(nstates, ncomp):
                 entry(x, lengths, *params)
         return
     plan = kvit.plan(nstates, ncomp, 37)
-    assert plan.states == (6 if nstates <= 6 else 8)
-    assert plan.components == (ncomp if ncomp <= 2 else 0)
-    assert plan.launch == (2, 160, 19)
+    assert tuple(plan) == expected_viterbi_plan(nstates, ncomp, 37)
+    assert kvit.function('viterbi_path_kernel', plan) == \
+        'viterbi_path_kernel<{},{}>'.format(plan.states, plan.components)
     for entry in (kvit.viterbi, kvit.viterbi_extents):
         with pytest.raises(ValueError, match='no kernel for device meta'):
             entry(x, lengths, *params)
+
+
+@pytest.mark.parametrize('nstates', (3, 8))
+def test_viterbi_plan_bounds_the_loop_over_components(nstates):
+    """The loop over K takes up to MAX_COMPONENTS components, its dynamic
+    shared memory past the 48 KB a block has by default and within the
+    227 KB it may have; one more raises before a launch."""
+    most = kvit.MAX_COMPONENTS
+    plan = kvit.plan(nstates, most, 1024)
+    assert tuple(plan) == expected_viterbi_plan(nstates, most, 1024)
+    assert 48 * 1024 < plan.smem < 200 * 1024
+    with pytest.raises(ValueError, match='components'):
+        kvit.plan(nstates, most + 1, 1024)
+    meta = dict(device='meta', dtype=torch.float32)
+    params = [torch.empty(nstates, **meta),
+              torch.empty(nstates, nstates, **meta)] + \
+        [torch.empty(nstates, most + 1, **meta) for _ in range(3)]
+    with pytest.raises(ValueError, match='{} components'.format(most + 1)):
+        kvit.viterbi(torch.empty(4, 9, **meta),
+                     torch.empty(4, dtype=torch.int32, device='meta'),
+                     *params)
 
 
 # ------------------------------------------------------------- the build
@@ -585,3 +624,97 @@ def test_ptxas_report_by_instantiation():
         'viterbi_path_kernel<8,0>': (72, 8, 4, 12),
         'lstm_general_kernel<true>': (64, 0, 0, 0),
         'peaks_kernel': (40, 0, 0, 0)}
+
+
+# cuobjdump -sass of two Viterbi instantiations, in its layout, with loops
+# cut from the card's listing of viterbi_path_kernel<8,3>: the chain's
+# forward steps (maxima of scores from shared memory), its backtrace steps
+# (a funnel shift and a mask of words in shared memory), a worker's
+# emission loop (special functions) and its word loop (a float compare, a
+# store to device memory). The second holds a branch in its forward loop
+# and a call in its backtrace loop.
+STEP_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_119viterbi_path_kernelILi8ELi3EEEvPKfPKiS2_S2_NS_7MixtureEPiPxPfii
+        /*0000*/                   LDS R28, [R8] ;                  /* 0x0 */
+        /*0010*/                   FADD R12, R4, R12 ;              /* 0x0 */
+        /*0020*/                   FMNMX R12, R12, R13, !PT ;       /* 0x0 */
+        /*0030*/              @!P1 FADD R25, R15, R28 ;             /* 0x0 */
+        /*0040*/              @!P0 STS [R10], R25 ;                 /* 0x0 */
+        /*0050*/                   NOP ;                            /* 0x0 */
+        /*0060*/                   LDS.128 R12, [R9] ;              /* 0x0 */
+        /*0070*/               @P2 BRA 0x0 ;                        /* 0x0 */
+        /*0080*/                   MUFU.RCP R3, R2 ;                /* 0x0 */
+        /*0090*/                   MUFU.EX2 R4, R3 ;                /* 0x0 */
+        /*00a0*/                   FMNMX R5, R4, R3, !PT ;          /* 0x0 */
+        /*00b0*/                   STS [R6], R5 ;                   /* 0x0 */
+        /*00c0*/               @P3 BRA 0x80 ;                       /* 0x0 */
+        /*00d0*/                   LDS.128 R12, [R9] ;              /* 0x0 */
+        /*00e0*/                   FMNMX R5, R12, R13, !PT ;        /* 0x0 */
+        /*00f0*/                   FSETP.EQ.AND P0, PT, R12, R5, PT ; /* 0x0 */
+        /*0100*/                   SHFL.BFLY PT, R7, R6, 0x1, 0x1f ; /* 0x0 */
+        /*0110*/                   STG.E desc[UR4][R2.64], R7 ;     /* 0x0 */
+        /*0120*/               @P4 BRA 0xd0 ;                       /* 0x0 */
+        /*0130*/                   LDS.128 R4, [R3] ;               /* 0x0 */
+        /*0140*/                   SHF.R.W.U32.HI R9, R7, R0, R7 ;  /* 0x0 */
+        /*0150*/                   LOP3.LUT R0, R9, 0x1c, RZ, 0xc0, !PT ; /* 0x0 */
+        /*0160*/              @!P0 STS [R2+0xc], R0 ;               /* 0x0 */
+        /*0170*/               @P5 BRA 0x130 ;                      /* 0x0 */
+        /*0180*/                   EXIT ;                           /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_122viterbi_extents_kernelILi6ELi2EEEvPKfPKiS2_S2_NS_7MixtureEPiPxS5_Pfii
+        /*0000*/                   LDS.128 R12, [R9] ;              /* 0x0 */
+        /*0010*/                   FMNMX R12, R12, R13, !PT ;       /* 0x0 */
+        /*0020*/               @P0 BRA 0x40 ;                       /* 0x0 */
+        /*0030*/                   STS [R10], R12 ;                 /* 0x0 */
+        /*0040*/               @P2 BRA 0x0 ;                        /* 0x0 */
+        /*0050*/                   LDS.128 R4, [R3] ;               /* 0x0 */
+        /*0060*/                   SHF.R.S32.HI R9, RZ, R0, R7 ;    /* 0x0 */
+        /*0070*/                   LOP3.LUT R0, R9, 0x1f, RZ, 0xc0, !PT ; /* 0x0 */
+        /*0080*/              @!P1 CALL.REL.NOINC 0x100 ;           /* 0x0 */
+        /*0090*/                   STS [R2], R0 ;                   /* 0x0 */
+        /*00a0*/               @P5 BRA 0x50 ;                       /* 0x0 */
+        /*00b0*/                   EXIT ;                           /* 0x0 */
+\t\tFunction : _Z12peaks_kernelPKf
+        /*0000*/                   FMNMX R1, R2, R3, !PT ;          /* 0x0 */
+        /*0010*/                   STS [R4], R1 ;                   /* 0x0 */
+        /*0020*/               @P0 BRA 0x0 ;                        /* 0x0 */
+"""
+
+
+def test_viterbi_step_loops_by_instantiation():
+    """kernel_sass.py finds each Viterbi instantiation's forward and
+    backtrace step loops (and no worker loop among them, and no other
+    kernel), and flags an instantiation whose step loops hold a branch
+    besides the back edge or a call."""
+    import kernel_sass
+    found = kernel_sass.step_loops(STEP_SASS)
+    assert sorted(found) == ['viterbi_extents_kernel<6,2>',
+                             'viterbi_path_kernel<8,3>']
+    clean = found['viterbi_path_kernel<8,3>']
+    assert [(l['first'], l['last']) for l in clean['forward']] == \
+        [('0x0', '0x70')]
+    assert [(l['first'], l['last']) for l in clean['backtrace']] == \
+        [('0x130', '0x170')]
+    assert all(l['inner_branches'] == 0 and l['calls'] == 0
+               for loops in clean.values() for l in loops)
+    faulty = found['viterbi_extents_kernel<6,2>']
+    assert [(l['inner_branches'], l['calls']) for l in faulty['forward']] == \
+        [(1, 0)]
+    assert [(l['inner_branches'], l['calls'])
+            for l in faulty['backtrace']] == [(0, 1)]
+    assert kernel_sass.unclean_step_loops(found) == \
+        ['viterbi_extents_kernel<6,2>']
+    # a listing without a backtrace loop is not clean either
+    no_back = STEP_SASS[:STEP_SASS.index('        /*0130*/')]
+    assert kernel_sass.unclean_step_loops(kernel_sass.step_loops(no_back)) \
+        == ['viterbi_path_kernel<8,3>']
+
+
+def test_viterbi_register_limit():
+    """Four blocks of 160 threads an SM leave a thread 102 of the SM's
+    65,536 registers, 96 at the allocation unit of 8: the general design
+    must stay within it (kernel_sass.py) so that the 512 blocks of 1,024
+    windows run in one wave, as the shipped <6,2> (78 and 94) does."""
+    import kernel_sass
+    assert kvit.THREADS == 160
+    assert kernel_sass.viterbi_register_limit() == 96
+    assert kernel_sass.viterbi_register_limit(blocks=1) == 408
