@@ -693,10 +693,12 @@ def check_unsplit_viterbi(unsplitmodel, rng, shapes):
 # the "kernel shapes" grid: every LSTM wrapper at each width and input
 # width, the stacked one also at layers of unequal widths, at [37, 61]
 # (within LSTM_ATOL); both Viterbis at 1 to 8 states x 1 to 5 components
-# (every instantiation: K 1 to 4 unrolled, 5 the loop over K), at 3 and 8
-# states x the most components the loop takes (its dynamic shared memory
-# past 48 KB), and the tie HMM at 7 and 8 states, at [37, 999] (exact,
-# logp included)
+# (every instantiation: K 1 to 4 unrolled, 5 the loop over K), the loop
+# over K at SHAPE_MANY_COMPONENTS (its dynamic shared memory past 48 KB:
+# every component kept at 200, part of them at 600, the parameters in
+# device memory at 1,100), the tie HMM at 7 and 8 states, and HMMs and
+# signal outside the range of the unrolled mixtures' fast division
+# (division_edge_hmms), at [37, 999] (exact, logp included)
 SHAPE_HIDDEN = (1, 20, 56, 96, 128, 256)
 SHAPE_INPUTS = (1, 3)
 SHAPE_STACKED_PAIRS = ((64, 32), (32, 96))
@@ -705,7 +707,9 @@ SHAPE_STACKED_PAIRS = ((64, 32), (32, 96))
 SHAPE_WIDEST = (('lstm2_stacked', 1, 1100, 1100), ('lstm_last', 3, 2100, None))
 SHAPE_STATES = tuple(range(1, 9))
 SHAPE_COMPONENTS = (1, 2, 3, 4, 5)
-SHAPE_MOST_COMPONENTS_STATES = (3, 8)
+SHAPE_MANY_COMPONENTS = ((3, 200), (8, 200), (3, 600), (8, 1100))
+SHAPE_DIVISION_STATES = (3, 8)
+SHAPE_DIVISION_COMPONENTS = (3, 4, 5)
 SHAPE_BATCH = 37
 SHAPE_LSTM_T = 61
 SHAPE_VITERBI_T = 999
@@ -814,6 +818,144 @@ def check_full_spread(rng, seeds=3, factor=10.0):
                 SHAPE_BATCH, SHAPE_LSTM_T, err, *errs))
 
 
+def division_edge_hmms(rng):
+    """(kind, HMM arrays, (signal, lengths)) at SHAPE_DIVISION_STATES x
+    SHAPE_DIVISION_COMPONENTS outside the range where the unrolled
+    mixtures' fast division rounds as the IEEE division
+    (csrc/viterbi.cu fast_div_operand, fast_div_divisor), so that they
+    take the IEEE division: every sigma below 1 (an HMM of a normalised
+    signal), every sigma above 2^20, and pA signal with frames at 0 (in
+    the range) and +-1e-30 (outside it)."""
+    from poreplex_torch import simulate
+    cases = []
+    for s in SHAPE_DIVISION_STATES:
+        for k in SHAPE_DIVISION_COMPONENTS:
+            start, trans, mus, sigmas, logw = simulate.random_hmm(rng, s, k)
+            norm = [start, trans, ((mus - 92.5) / 20).astype(np.float32),
+                    (sigmas / 20).astype(np.float32), logw]
+            cases.append(('sigma below 1', norm, simulate.hmm_signal(
+                rng, norm[2], SHAPE_BATCH, SHAPE_VITERBI_T, noise=0.15)))
+            wide = [start, trans, mus, (sigmas * 2.0 ** 19.2).astype(
+                np.float32), logw]
+            cases.append(('sigma above 2^20', wide, simulate.hmm_signal(
+                rng, mus, SHAPE_BATCH, SHAPE_VITERBI_T)))
+            x, lens = simulate.hmm_signal(rng, mus, SHAPE_BATCH,
+                                          SHAPE_VITERBI_T)
+            for i, v in enumerate((0.0, 1e-30, -1e-30)):
+                x[:, i::97] = v
+            cases.append(('x at 0 and +-1e-30',
+                          [start, trans, mus, sigmas, logw], (x, lens)))
+    return cases
+
+
+# fast_div beside the IEEE division (tools/viterbi_fast_div.cu, built with
+# csrc/viterbi.cu's flags): the edges of its range, just past them, and
+# random operands in it
+FAST_DIV_SOURCE = os.path.join('tools', 'viterbi_fast_div.cu')
+FAST_DIV_RANDOM = 1 << 22
+FAST_DIV_SEED = SEED + 31
+
+
+def start_fast_div_build():
+    """Starts nvcc on FAST_DIV_SOURCE into build/; returns (process,
+    library path)."""
+    from poreplex_torch.kernels import _build
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, 'build', 'fast_div')
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, 'viterbi_fast_div.so')
+    return subprocess.Popen(
+        [_build.nvcc_path()] + _build.flags('viterbi.cu') +
+        ['-o', lib, os.path.join(root, FAST_DIV_SOURCE)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def fast_div_operands(rng):
+    """(x, mu, b) float32 triples [n, 3] and whether each is inside
+    fast_div's range (as fast_div_operand and fast_div_divisor state it):
+    every pair of x and mu at an edge (0, +-2^-56 and
+    the float above it, +-2^99 and the float below it) over b at an edge
+    (1 and the float above it, 2^20 and the float below it); operands just
+    past an edge (outside); mu one float above x; signal levels in pA;
+    random magnitudes from 2^-56 to 2^99 of either sign over b from 1 to
+    2^20."""
+    f = np.float32
+    edge = [f(0.0)]
+    for v in (f(2.0 ** -56), np.nextafter(f(2.0 ** -56), f(1)),
+              f(2.0 ** 99), np.nextafter(f(2.0 ** 99), f(0))):
+        edge += [v, -v]
+    bedge = [f(1.0), np.nextafter(f(1.0), f(2)), f(2.0 ** 20),
+             np.nextafter(f(2.0 ** 20), f(0))]
+    grid = np.array([(x, m, b) for x in edge for m in edge for b in bedge],
+                    np.float32)
+    past_op = [np.nextafter(f(2.0 ** -56), f(0)), f(1e-30),
+               np.nextafter(f(2.0 ** 99), f(np.inf)), f(2.0 ** 100)]
+    past_b = [np.nextafter(f(1.0), f(0)), f(0.5),
+              np.nextafter(f(2.0 ** 20), f(np.inf)), f(2.0 ** 21)]
+    past = np.array([(x, f(3.0), f(5.0)) for x in past_op] +
+                    [(f(3.0), m, f(5.0)) for m in past_op] +
+                    [(f(3.0), f(7.0), b) for b in past_b], np.float32)
+    n = FAST_DIV_RANDOM
+
+    def magnitudes():
+        return (rng.choice((-1.0, 1.0), n) *
+                np.exp2(rng.uniform(-56.0, 99.0, n))).astype(np.float32)
+    x = magnitudes()
+    near = np.stack([x, np.nextafter(x, f(np.inf)),
+                     np.exp2(rng.uniform(0.0, 20.0, n)).astype(np.float32)],
+                    1)
+    pa = np.stack([rng.uniform(0.0, 200.0, n), rng.uniform(40.0, 140.0, n),
+                   rng.uniform(1.0, 13.0, n)], 1).astype(np.float32)
+    wide = np.stack([magnitudes(), magnitudes(), np.exp2(rng.uniform(
+        0.0, 20.0, n)).astype(np.float32)], 1)
+    triples = np.concatenate([grid, past, near, pa, wide])
+
+    def operand(v):
+        v = np.abs(v)
+        return (v == 0) | ((v >= 2.0 ** -56) & (v <= 2.0 ** 99))
+    inside = (operand(triples[:, 0]) & operand(triples[:, 1]) &
+              (triples[:, 2] >= 1) & (triples[:, 2] <= 2.0 ** 20))
+    assert inside[:len(grid)].all() and \
+        not inside[len(grid):len(grid) + len(past)].any()
+    return triples, inside
+
+
+def check_fast_div(build, rng):
+    """Fails unless fast_div(x - mu, b) equals (x - mu) / b in every bit
+    on every triple inside its range (fast_div_operands), and its guards
+    put each triple where fast_div_operands does."""
+    import ctypes
+    proc, path = build
+    report = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise AssertionError('nvcc failed on {}:\n{}'.format(FAST_DIV_SOURCE,
+                                                             report))
+    lib = ctypes.CDLL(path)
+    lib.pp_fast_div.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 4
+    triples, want_inside = fast_div_operands(rng)
+    t = torch.as_tensor(triples.T.copy(), device=DEVICE)
+    n = t.shape[1]
+    inside = torch.empty(n, dtype=torch.int32, device=DEVICE)
+    fast, ieee = (torch.empty(n, device=DEVICE) for _ in range(2))
+    from poreplex_torch.kernels import _build
+    _build.check(lib.pp_fast_div(
+        _build.ptr(t[0]), _build.ptr(t[1]), _build.ptr(t[2]), n,
+        _build.ptr(inside), _build.ptr(fast), _build.ptr(ieee),
+        _build.stream(t.device)), 'fast_div')
+    inside = inside.bool().cpu().numpy()
+    misplaced = int((inside != want_inside).sum())
+    differ = int((fast.view(torch.int32) != ieee.view(torch.int32))
+                 .cpu().numpy()[inside].sum())
+    log('fast_div: {} of {} triples inside its range (every edge pair, '
+        'random operands), {} quotients differ from the IEEE division\'s, '
+        '{} triples placed otherwise by its guards'.format(
+            int(inside.sum()), n, differ, misplaced))
+    if differ or misplaced:
+        raise AssertionError('fast_div: {} quotients differ, {} triples '
+                             'misplaced'.format(differ, misplaced))
+
+
 @torch.inference_mode()
 def check_viterbi_shapes(rng):
     """Both Viterbi wrappers at every states x components of the grid on a
@@ -822,18 +964,19 @@ def check_viterbi_shapes(rng):
     from poreplex_torch import simulate
     from poreplex_torch.kernels import viterbi as kvit
     from poreplex_torch.ops import viterbi as vit_ops
-    hmms = [('random', simulate.random_hmm(rng, s, k))
+    hmms = [('random', simulate.random_hmm(rng, s, k), None)
             for s in SHAPE_STATES for k in SHAPE_COMPONENTS]
-    hmms += [('random', simulate.random_hmm(rng, s, kvit.MAX_COMPONENTS))
-             for s in SHAPE_MOST_COMPONENTS_STATES]
-    hmms += [('tie', simulate.tie_hmm(k, s)) for s in (7, 8)
+    hmms += [('random', simulate.random_hmm(rng, s, k), None)
+             for s, k in SHAPE_MANY_COMPONENTS]
+    hmms += [('tie', simulate.tie_hmm(k, s), None) for s in (7, 8)
              for k in SHAPE_COMPONENTS]
+    hmms += division_edge_hmms(rng)
     designs = {}
-    for kind, arrays in hmms:
+    for kind, arrays, signal in hmms:
         params = [torch.as_tensor(a, device=DEVICE) for a in arrays]
         nstates, ncomp = arrays[2].shape
-        xs, lens = simulate.hmm_signal(rng, arrays[2], SHAPE_BATCH,
-                                       SHAPE_VITERBI_T)
+        xs, lens = signal or simulate.hmm_signal(rng, arrays[2], SHAPE_BATCH,
+                                                 SHAPE_VITERBI_T)
         x = torch.as_tensor(xs, device=DEVICE)
         lengths = torch.as_tensor(lens, device=DEVICE)
         path, logp = vit_ops.viterbi(x, lengths, *params)
@@ -860,10 +1003,13 @@ def check_viterbi_shapes(rng):
         designs[key] = designs.get(key, 0) + 1
     log('kernel shapes: viterbi_extents and viterbi exact (extents, paths, '
         'logp) at {} HMMs of 1 to 8 states x 1 to 5 components, {} states x '
-        '{} components and the tie HMM at 7 and 8 states, [{}, {}]; by '
-        'instantiation <states, components (0: any)>: {}'.format(
-            len(hmms), ' and '.join(map(str, SHAPE_MOST_COMPONENTS_STATES)),
-            kvit.MAX_COMPONENTS, SHAPE_BATCH, SHAPE_VITERBI_T,
+        'components, the tie HMM at 7 and 8 states and past the fast '
+        'division\'s range ({}), [{}, {}]; by instantiation <states, '
+        'components (0: any)>: {}'.format(
+            len(hmms), ', '.join('{} x {}'.format(*c)
+                                 for c in SHAPE_MANY_COMPONENTS),
+            ', '.join(sorted({kind for kind, _, signal in hmms if signal})),
+            SHAPE_BATCH, SHAPE_VITERBI_T,
             json.dumps({'<{},{}>'.format(*k): v
                         for k, v in sorted(designs.items())})))
     return designs
@@ -3195,6 +3341,7 @@ def main(argv):
     from poreplex_torch.pipeline.engine import DeviceEngine
 
     t0 = time.perf_counter()
+    fast_div_build = None if multi_card else start_fast_div_build()
     reports = _build.build_all()
     log('built {} in {:.1f} s ({})'.format(
         ', '.join(reports), time.perf_counter() - t0, ', '.join(
@@ -3243,6 +3390,7 @@ def main(argv):
         del engine
         for row in rows:
             log(kernel_line(row))
+        check_fast_div(fast_div_build, np.random.default_rng(FAST_DIV_SEED))
 
         (results, timings, launches, analyzer, stage1_inputs, reads,
          stage1_run, polya_blens) = run_main_path(config, rng)

@@ -9,10 +9,9 @@ which run for CPU tensors:
   viterbi          (path [B, T] int64, logp [B]), the decoded state of every
                    frame (the unsplit-read HMM's windows)
 
-The kernels take HMMs of 1 to 8 states with 1 to ``MAX_COMPONENTS``
-mixture components; ``plan`` gives the instantiation an HMM runs on and
-its launch. More states or components raise ``ValueError`` before any
-launch.
+The kernels take HMMs of 1 to 8 states with any number of mixture
+components; ``plan`` gives the instantiation an HMM runs on and its
+launch. More states raise ``ValueError`` before any launch.
 """
 
 import collections
@@ -32,12 +31,12 @@ _SIGNATURES = {
 }
 MAX_STATES = 8
 # the kernels' instantiations: states (an HMM of fewer is padded with inert
-# states), and components (any other count up to MAX_COMPONENTS runs a loop
-# over them, 0 here, with its parameters and a scratch in dynamic shared
+# states), and components (any other count runs a loop over them, 0 here,
+# with its parameters and a scratch in up to DYN_BYTES of dynamic shared
 # memory)
 PADDED_STATES = (6, 8)
 UNROLLED_COMPONENTS = (1, 2, 3, 4)
-MAX_COMPONENTS = 128
+DYN_BYTES = 192 * 1024
 # a block: reads, threads (one chain warp and four worker warps); the
 # shipped HMMs' instantiations (6 states, K 1 and 2) keep their design,
 # every other one runs the general design (a worker lane a state)
@@ -60,19 +59,29 @@ def plan(nstates, ncomp, batch):
     if not 1 <= nstates <= MAX_STATES:
         raise ValueError('no Viterbi kernel for {} states (1 to {})'.format(
             nstates, MAX_STATES))
-    if not 1 <= ncomp <= MAX_COMPONENTS:
-        raise ValueError('no Viterbi kernel for {} components (1 to '
-                         '{})'.format(ncomp, MAX_COMPONENTS))
+    if ncomp < 1:
+        raise ValueError('no Viterbi kernel for {} components'.format(ncomp))
     if batch < 1:
         raise ValueError('empty batch')
     states = min(s for s in PADDED_STATES if s >= nstates)
     components = ncomp if ncomp in UNROLLED_COMPONENTS else 0
     design = 'shipped' if (states, components) in SHIPPED else 'general'
-    # K = 0: mu, sigma and the constant [states, ncomp] and a scratch of
-    # ncomp floats a worker
-    smem = 4 * ncomp * (3 * states + WORKERS) if components == 0 else 0
+    shared, keep = any_k(nstates, ncomp)
+    smem = 4 * (shared + keep * WORKERS) if components == 0 else 0
     return Plan(states, components, design,
                 (READS, THREADS, (batch + READS - 1) // READS), smem)
+
+
+def any_k(nstates, ncomp):
+    """The dynamic shared memory of a loop-over-K block: (floats of the
+    real states' mu, sigma and constant, [nstates, ncomp] each, if they
+    take at most half of DYN_BYTES, else 0 and the workers read them from
+    device memory; the components of a frame each worker keeps in its
+    scratch, as many as the rest holds up to ncomp: the others are
+    computed again for the sum)."""
+    mixture = 3 * nstates * ncomp
+    shared = mixture if 4 * mixture <= DYN_BYTES // 2 else 0
+    return shared, min(ncomp, (DYN_BYTES // 4 - shared) // WORKERS)
 
 
 def function(kernel, pl):
@@ -105,11 +114,10 @@ def _inputs(name, x, lengths, log_start, log_trans, mus, sigmas, logws):
     nstates, ncomp = mus.shape
     if batch == 0 or seqlen == 0:
         raise ValueError('{}: empty batch or sequence'.format(name))
-    if not 1 <= nstates <= MAX_STATES or not 1 <= ncomp <= MAX_COMPONENTS:
+    if not 1 <= nstates <= MAX_STATES or ncomp < 1:
         raise ValueError('{}: no kernel for {} states x {} components (1 to '
-                         '{} states, 1 to {} components)'.format(
-                             name, nstates, ncomp, MAX_STATES,
-                             MAX_COMPONENTS))
+                         '{} states, 1 or more components)'.format(
+                             name, nstates, ncomp, MAX_STATES))
     if (tuple(log_start.shape) != (nstates,) or
             tuple(log_trans.shape) != (nstates, nstates) or
             tuple(sigmas.shape) != (nstates, ncomp) or

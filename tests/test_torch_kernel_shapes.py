@@ -538,20 +538,26 @@ def expected_viterbi_plan(nstates, ncomp, batch):
     their own instantiations and more the loop over K (0); the shipped
     HMMs' <6,1> and <6,2> keep their design, every other instantiation
     runs the general one; a block is 2 reads, one chain warp and four
-    worker warps; the loop's parameters (mu, sigma, the constant,
-    [states, K]) and a scratch of K floats a worker (128) are dynamic
-    shared memory. Returns (states, components, design, launch, smem
-    bytes)."""
+    worker warps; the loop's dynamic shared memory, at most 192 KB, holds
+    the real states' parameters (mu, sigma, the constant, [nstates, K])
+    if they take at most 96 KB, and a scratch of as many components a
+    worker (128) as the rest holds, up to K. Returns (states, components,
+    design, launch, smem bytes)."""
     states = 6 if nstates <= 6 else 8
     components = ncomp if ncomp <= 4 else 0
     design = 'shipped' if (states, components) in ((6, 1), (6, 2)) else \
         'general'
-    smem = 4 * ncomp * (3 * states + 128) if components == 0 else 0
+    smem = 0
+    if components == 0:
+        params = 3 * nstates * ncomp if 12 * nstates * ncomp <= 96 * 1024 \
+            else 0
+        keep = min(ncomp, (48 * 1024 - params) // 128)
+        smem = 4 * (params + 128 * keep)
     return states, components, design, (2, 160, -(-batch // 2)), smem
 
 
 @pytest.mark.parametrize('nstates', range(1, 10))
-@pytest.mark.parametrize('ncomp', (1, 2, 3, 4, 5))
+@pytest.mark.parametrize('ncomp', (1, 2, 3, 4, 5, 200))
 def test_viterbi_plan_and_wrappers(nstates, ncomp):
     """plan() names the instantiation and its launch (expected_viterbi_plan);
     on 'meta' tensors the wrappers take every shape up to the launch, and
@@ -580,23 +586,34 @@ def test_viterbi_plan_and_wrappers(nstates, ncomp):
 
 @pytest.mark.parametrize('nstates', (3, 8))
 def test_viterbi_plan_bounds_the_loop_over_components(nstates):
-    """The loop over K takes up to MAX_COMPONENTS components, its dynamic
-    shared memory past the 48 KB a block has by default and within the
-    227 KB it may have; one more raises before a launch."""
-    most = kvit.MAX_COMPONENTS
-    plan = kvit.plan(nstates, most, 1024)
-    assert tuple(plan) == expected_viterbi_plan(nstates, most, 1024)
-    assert 48 * 1024 < plan.smem < 200 * 1024
-    with pytest.raises(ValueError, match='components'):
-        kvit.plan(nstates, most + 1, 1024)
+    """The loop over K takes any number of components within a bounded
+    dynamic shared memory: past the 48 KB a block has by default and
+    within the 227 KB it may have, every component kept at 200, part of
+    them at 600 (3 states), the parameters left in device memory at 1,100
+    (8 states); a million components plan, and reach the launch on 'meta'
+    tensors."""
+    for ncomp in (200, 600, 1100, 10 ** 6):
+        plan = kvit.plan(nstates, ncomp, 1024)
+        assert tuple(plan) == expected_viterbi_plan(nstates, ncomp, 1024)
+        assert plan.smem <= kvit.DYN_BYTES < 227 * 1024
+        params, keep = kvit.any_k(nstates, ncomp)
+        assert plan.smem == 4 * (params + keep * kvit.WORKERS)
+        assert (params > 0) == (12 * nstates * ncomp <= 96 * 1024)
+        if ncomp <= 1100:
+            assert plan.smem > 48 * 1024
+    assert kvit.any_k(nstates, 200) == (3 * nstates * 200, 200)
+    if nstates == 3:
+        assert kvit.any_k(3, 600) == (5400, (48 * 1024 - 5400) // 128)
+    else:
+        assert kvit.any_k(8, 1100) == (0, 384)
     meta = dict(device='meta', dtype=torch.float32)
     params = [torch.empty(nstates, **meta),
               torch.empty(nstates, nstates, **meta)] + \
-        [torch.empty(nstates, most + 1, **meta) for _ in range(3)]
-    with pytest.raises(ValueError, match='{} components'.format(most + 1)):
-        kvit.viterbi(torch.empty(4, 9, **meta),
-                     torch.empty(4, dtype=torch.int32, device='meta'),
-                     *params)
+        [torch.empty(nstates, 10 ** 6, **meta) for _ in range(3)]
+    for entry in (kvit.viterbi, kvit.viterbi_extents):
+        with pytest.raises(ValueError, match='no kernel for device meta'):
+            entry(torch.empty(4, 9, **meta),
+                  torch.empty(4, dtype=torch.int32, device='meta'), *params)
 
 
 # ------------------------------------------------------------- the build
