@@ -857,8 +857,8 @@ FAST_DIV_SEED = SEED + 31
 
 
 def start_fast_div_build():
-    """Starts nvcc on FAST_DIV_SOURCE into build/; returns (process,
-    library path)."""
+    """Starts nvcc on FAST_DIV_SOURCE into build/ (beside the package's
+    own build); returns (process, library path) for fast_div_library."""
     from poreplex_torch.kernels import _build
     root = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(root, 'build', 'fast_div')
@@ -920,10 +920,8 @@ def fast_div_operands(rng):
     return triples, inside
 
 
-def check_fast_div(build, rng):
-    """Fails unless fast_div(x - mu, b) equals (x - mu) / b in every bit
-    on every triple inside its range (fast_div_operands), and its guards
-    put each triple where fast_div_operands does."""
+def fast_div_library(build):
+    """Waits for start_fast_div_build's nvcc; returns the library."""
     import ctypes
     proc, path = build
     report = proc.communicate()[0]
@@ -933,6 +931,13 @@ def check_fast_div(build, rng):
     lib = ctypes.CDLL(path)
     lib.pp_fast_div.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
         [ctypes.c_void_p] * 4
+    return lib
+
+
+def check_fast_div(lib, rng):
+    """Fails unless fast_div(x - mu, b) equals (x - mu) / b in every bit
+    on every triple inside its range (fast_div_operands), and its guards
+    put each triple where fast_div_operands does."""
     triples, want_inside = fast_div_operands(rng)
     t = torch.as_tensor(triples.T.copy(), device=DEVICE)
     n = t.shape[1]
@@ -959,8 +964,10 @@ def check_fast_div(build, rng):
 @torch.inference_mode()
 def check_viterbi_shapes(rng):
     """Both Viterbi wrappers at every states x components of the grid on a
-    random HMM, and on the tie HMM at 7 and 8 states, against one plain
-    decode each: extents, paths and logp equal."""
+    random HMM, on the tie HMM at 7 and 8 states and on division_edge_hmms,
+    against one plain decode each: extents, paths and logp equal, and
+    plan's launch, dynamic shared memory and design equal to the C
+    side's."""
     from poreplex_torch import simulate
     from poreplex_torch.kernels import viterbi as kvit
     from poreplex_torch.ops import viterbi as vit_ops
@@ -999,6 +1006,13 @@ def check_viterbi_shapes(rng):
                                  'did not go to the lower state'.format(
                                      nstates))
         pl = kvit.plan(nstates, ncomp, SHAPE_BATCH)
+        c_side = kvit.launch_shape(SHAPE_BATCH, nstates, ncomp)
+        if (pl.launch, pl.smem, pl.design) != c_side:
+            raise AssertionError(
+                'kernel shapes: {} states x {} components: plan launches {} '
+                'with {} bytes of dynamic shared memory on the {} design, '
+                'the C side {} with {} on the {}'.format(
+                    nstates, ncomp, pl.launch, pl.smem, pl.design, *c_side))
         key = (pl.states, pl.components)
         designs[key] = designs.get(key, 0) + 1
     log('kernel shapes: viterbi_extents and viterbi exact (extents, paths, '
@@ -3347,6 +3361,10 @@ def main(argv):
         ', '.join(reports), time.perf_counter() - t0, ', '.join(
             '{} {:.1f} s'.format(source, seconds)
             for source, seconds in _build.build_seconds.items())))
+    fast_div = fast_div_build and fast_div_library(fast_div_build)
+    if fast_div:
+        log('built {} beside them, {:.1f} s from the start'.format(
+            FAST_DIV_SOURCE, time.perf_counter() - t0))
     for source, report in reports.items():
         for line in _build.usage_lines(source, report):
             log('  ' + line)
@@ -3390,7 +3408,7 @@ def main(argv):
         del engine
         for row in rows:
             log(kernel_line(row))
-        check_fast_div(fast_div_build, np.random.default_rng(FAST_DIV_SEED))
+        check_fast_div(fast_div, np.random.default_rng(FAST_DIV_SEED))
 
         (results, timings, launches, analyzer, stage1_inputs, reads,
          stage1_run, polya_blens) = run_main_path(config, rng)
