@@ -39,8 +39,8 @@
    the poly(A) tails and unsplit decisions of a few reads from each window
    bucket the run used (at least two) against the same analyzer on the
    CPU; every kernel must have been launched on this path; then "kernel
-   shapes": the three LSTM wrappers at widths 1, 20, 56, 96, 128 and 256,
-   input widths 1 and 3, stacked layers of 64 and 32, 32 and 96 units,
+   shapes": the three LSTM wrappers at widths 1, 20, 52, 56, 64, 96, 128
+   and 256, input widths 1 and 3, stacked layers of 64 and 32, 32 and 96 units,
    and past what 8 blocks hold whole a stacked LSTM(1100) x 2 and an
    LSTM(2100) ([37, 61], random weights from a generator of its own,
    within 5e-5 of the plain versions; each line names the design
@@ -57,8 +57,12 @@
    3-component extents at [256, 6666], the 8-state 4-component paths at
    [1024, 1024]) against their plain versions, timed as in step 2; the
    widened LSTM(96) x 2 and LSTM(128) must have run in clusters of 2
-   blocks or more holding every weight row, and the widened Viterbis
-   their unrolled <8,3> and <8,4> instantiations on the general design;
+   blocks or more holding every weight row, the widened BiLSTM(56)
+   bilstm_kernel<56> at its own width (no inert unit), and the widened
+   Viterbis their unrolled <8,3> and <8,4> instantiations on the general
+   design; then the general design's BiLSTM, both directions in one
+   launch, at H 128 and [256, 300] from a width-1 input, timed beside
+   torch.nn.LSTM;
 4. profiles one stage-1 batch and one whole 256-read batch: the device's
    busy share, the ten kernels with the most device time and the port's
    own kernels;
@@ -73,7 +77,7 @@
    exit with 0; then the "session, widened preset": the same reads
    through commandline.main with -c the widened preset, where every
    wrapper launches on the widened kernels alone (kernels.instantiations:
-   the general LSTM design, bilstm_kernel<64>, the 8-state Viterbis
+   the general LSTM design, bilstm_kernel<56>, the 8-state Viterbis
    unrolled for 3 and 4 components, the peak detector and the DP), prints
    reads/s beside the shipped session's, and holds its first reads
    against the port's CPU session on that preset (summary rows and FASTQ
@@ -150,6 +154,7 @@
 Any failure raises and exits non-zero before the last line is printed.
 """
 
+import collections
 import gzip
 import json
 import os
@@ -338,7 +343,9 @@ def lstm_plan(name, batch, inputs, hidden1, hidden2=None):
 def check_lstms(engine, rng, ragged=RAGGED):
     """The three LSTM kernels on the engine's networks (at their widths)
     at the main path's shapes and at the ragged batches: within LSTM_ATOL
-    of their plain versions, timed beside torch.nn.LSTM."""
+    of their plain versions, timed beside torch.nn.LSTM. Each row keeps
+    the kernel functions one call launched and its output's shape."""
+    from poreplex_torch import kernels
     from poreplex_torch.kernels import lstm as klstm
     from poreplex_torch.ops import rnn
     scaler, demux = engine.scaler, engine.demux
@@ -388,7 +395,9 @@ def check_lstms(engine, rng, ragged=RAGGED):
         for batch in (BATCH,) + tuple(ragged):
             xs = xs_main[:batch].contiguous()
             seqlen = xs.shape[1]
+            before = collections.Counter(kernels.instantiations)
             got = kernel(xs)
+            functions = dict(kernels.instantiations - before)
             ref, plain_ms = timed(lambda: plain(xs))
             err = float((got - ref).abs().max())
             if not (np.isfinite(err) and err <= LSTM_ATOL):
@@ -407,7 +416,9 @@ def check_lstms(engine, rng, ragged=RAGGED):
                 nbytes=nbytes(batch, seqlen), library_err=lib_err,
                 steps=seqlen, step_unit='step', launch=launch, design=design,
                 widths=widths, cluster=pl.launches[0].cluster,
-                smem_rows=pl.launches[0].smem_rows, max_clusters=clusters))
+                smem_rows=pl.launches[0].smem_rows, max_clusters=clusters,
+                functions=functions, out_shape=list(got.shape),
+                kernel_width=pl.launches[0].hidden))
     return rows
 
 
@@ -699,7 +710,7 @@ def check_unsplit_viterbi(unsplitmodel, rng, shapes):
 # device memory at 1,100), the tie HMM at 7 and 8 states, and HMMs and
 # signal outside the range of the unrolled mixtures' fast division
 # (division_edge_hmms), at [37, 999] (exact, logp included)
-SHAPE_HIDDEN = (1, 20, 56, 96, 128, 256)
+SHAPE_HIDDEN = (1, 20, 52, 56, 64, 96, 128, 256)
 SHAPE_INPUTS = (1, 3)
 SHAPE_STACKED_PAIRS = ((64, 32), (32, 96))
 # past what 8 blocks hold whole: rows read from device memory, and warps
@@ -1045,7 +1056,7 @@ def widened_config(outdir, preset):
 WIDENED_ROWS = {
     'lstm2_stacked': 'lstm2_stacked: lstm2_stacked_general_kernel (widened '
                      'preset, LSTM(96) x 2)',
-    'bidirectional_lstm': 'bidirectional_lstm: bilstm_kernel<64> (widened '
+    'bidirectional_lstm': 'bidirectional_lstm: bilstm_kernel<56> (widened '
                           'preset, BiLSTM(56))',
     'lstm_last': 'lstm_last: lstm_general_kernel (widened preset, '
                  'LSTM(128))',
@@ -1071,6 +1082,7 @@ def time_widened(preset, rng):
     for row in rows:
         row['json_name'] = WIDENED_ROWS[row['name']]
     check_widened_clusters(rows)
+    check_widened_bilstm(rows)
     check_widened_viterbis(rows)
     return rows
 
@@ -1099,6 +1111,78 @@ def check_widened_clusters(rows):
             '{} at once), all {} rows of each matrix in shared memory'.format(
                 row['json_name'], row['cluster'], row['max_clusters'],
                 max(widths)))
+
+
+def check_widened_bilstm(rows):
+    """Fails unless the widened BiLSTM(56) ran the register kernel at its
+    own width with no inert unit: bilstm_kernel<56>, launched once a call
+    on the layer's own weights, its [B, T, 2H] output written by the
+    kernel (no padded copy before the launch, none after it)."""
+    for row in rows:
+        if row['name'] != 'bidirectional_lstm':
+            continue
+        hidden = row['widths'][-1]
+        want = {'bilstm_kernel<{}>'.format(hidden): 1}
+        if (row['functions'] != want or row['kernel_width'] != hidden or
+                row['out_shape'] != row['shape'] + [2 * hidden]):
+            raise AssertionError(
+                '{} at {}: BiLSTM({}) launched {} at width {}, output {}, '
+                'not {} at its own width'.format(
+                    row['json_name'], row['shape'], hidden, row['functions'],
+                    row['kernel_width'], row['out_shape'], want))
+        log('kernel shapes: {} ran bilstm_kernel<{}>, the layer\'s own width '
+            '(no inert unit), output {}'.format(row['json_name'], hidden,
+                                                row['out_shape']))
+
+
+# the general design's BiLSTM, which no preset runs: both directions in
+# one launch at H 128 from a width-1 input, [B, T]
+GENERAL_BILSTM = (BATCH, 300, 128)
+
+
+@torch.inference_mode()
+def time_general_bilstm(rng):
+    """lstm_general_kernel's BiLSTM at GENERAL_BILSTM against its plain
+    version, timed beside torch.nn.LSTM(bidirectional=True) and its
+    bound; returns the row."""
+    from poreplex_torch import kernels
+    from poreplex_torch.kernels import lstm as klstm
+    from poreplex_torch.ops import rnn
+    batch, seqlen, hidden = GENERAL_BILSTM
+    fwd, bwd = random_layer(rng, 1, hidden), random_layer(rng, 1, hidden)
+    xs = torch.as_tensor(rng.normal(0, 1, (batch, seqlen, 1)).astype(
+        np.float32), device=DEVICE)
+    before = collections.Counter(kernels.instantiations)
+    got = klstm.bidirectional_lstm(fwd, bwd, xs)
+    functions = dict(kernels.instantiations - before)
+    ref, plain_ms = timed(lambda: rnn.bidirectional_lstm(fwd, bwd, xs))
+    err = float((got - ref).abs().max())
+    if functions != {'lstm_general_kernel<true>': 1} or \
+            not err <= LSTM_ATOL:
+        raise AssertionError('BiLSTM({}) at {}: launched {}, max abs err {} '
+                             'vs plain'.format(hidden, [batch, seqlen],
+                                               functions, err))
+    net = torch_lstm([[fwd, bwd]], bidirectional=True)
+    lib_err = float((net(xs)[0] - got).abs().max())
+    library_ms = time_ms(lambda: net(xs), reps=5)
+    pl, launch, design, clusters = lstm_plan('bidirectional_lstm', batch, 1,
+                                             hidden)
+    row = dict(
+        name='bidirectional_lstm',
+        json_name='bidirectional_lstm: lstm_general_kernel (BiLSTM({}), '
+                  'general design)'.format(hidden),
+        route='cuda', source='poreplex_torch/csrc/lstm.cu',
+        replaces='poreplex_tpu/ops/pallas_rnn.py:236',
+        shape=[batch, seqlen], max_abs_err=err,
+        ms=time_ms(lambda: klstm.bidirectional_lstm(fwd, bwd, xs), reps=5),
+        plain_ms=plain_ms, library_ms=library_ms,
+        flops=2 * lstm_flops(batch, seqlen, 1, hidden, 1),
+        nbytes=batch * seqlen * 4 + batch * seqlen * 2 * hidden * 4,
+        library_err=lib_err, steps=seqlen, step_unit='step', launch=launch,
+        design=design, cluster=pl.launches[0].cluster,
+        max_clusters=clusters)
+    log(kernel_line(row))
+    return row
 
 
 # the widened rows of the Viterbis: the unrolled instantiation each must
@@ -1135,6 +1219,7 @@ def check_kernel_shapes(rng, preset):
     rows = time_widened(preset, rng)
     for row in rows:
         log(kernel_line(row))
+    time_general_bilstm(rng)
     log('kernel shapes took {:.1f} s'.format(time.perf_counter() - t0))
     return rows
 
@@ -1631,11 +1716,12 @@ def session_through_cli(config, results, reads, main_outdir, card):
 # the kernel functions the widened preset's session must launch, and no
 # other: the scaler's two LSTM(96) in one launch and the LSTM(128) on the
 # general design (the scaler's layer 1 folds its width-1 input), BiLSTM(56)
-# on the register design at 64, the 7- and 8-state HMMs on the 8-state
-# kernels unrolled for their 3 and 4 components
+# on the register design at its own width (bilstm_kernel<56>, no inert
+# unit), the 7- and 8-state HMMs on the 8-state kernels unrolled for their
+# 3 and 4 components
 WIDENED_FUNCTIONS = ('lstm2_stacked_general_kernel<true>',
                      'lstm_general_kernel<false>',
-                     'bilstm_kernel<64>', 'viterbi_extents_kernel<8,3>',
+                     'bilstm_kernel<56>', 'viterbi_extents_kernel<8,3>',
                      'viterbi_path_kernel<8,4>', 'peaks_kernel', 'dp_kernel')
 # reads of the widened session held against the port's CPU session
 WIDENED_CPU_READS = 4

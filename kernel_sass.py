@@ -19,7 +19,8 @@ loops are such loops, and hold no call. The loops also go to
 design's instantiations (``lstm_general_kernel``,
 ``lstm2_stacked_general_kernel``, compiled for the block sizes
 ``kernels/lstm.py``'s plan() picks, at most ``G_MAX_THREADS`` and two
-``G_LAYER_THREADS``) and every Viterbi instantiation
+``G_LAYER_THREADS``), the register design's (``lstm2_stacked_kernel``,
+``bilstm_kernel``, ``lstm_last_kernel``) and every Viterbi instantiation
 (``viterbi_extents_kernel``, ``viterbi_path_kernel``) must not spill, every
 instantiation of the Viterbis' general design (all but the shipped HMMs'
 ``<6,1>`` and ``<6,2>``, which keep their registers) must fit four blocks
@@ -44,14 +45,16 @@ import re
 import subprocess
 import sys
 
-# csrc/lstm.cu's width lists, one width past each instantiated one
-PROBE_WIDTHS = {'STACKED_WIDTHS': (48, 64), 'SEQ_WIDTHS': (64, 80),
+# csrc/lstm.cu's width lists, one width past each instantiated one (the
+# BiLSTM's widths are multiples of 8)
+PROBE_WIDTHS = {'STACKED_WIDTHS': (48, 64), 'SEQ_WIDTHS': (48, 56, 64, 72),
                 'LAST_WIDTHS': (64, 80)}
 FUNCTION = re.compile(r'Function : (\S+)\n(.*?)(?=Function :|\Z)', re.S)
 INSTRUCTION = re.compile(r'^\s*/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;', re.M)
 BRANCH = re.compile(r'\bBRA(?:\.\S+)?\b.*?(0x[0-9a-f]+)\s*$')
 CALL = re.compile(r'\bCALL\b')
 GENERAL_LSTM = ('lstm_general_kernel', 'lstm2_stacked_general_kernel')
+REGISTER_LSTM = ('lstm2_stacked_kernel', 'bilstm_kernel', 'lstm_last_kernel')
 VITERBI = ('viterbi_extents_kernel', 'viterbi_path_kernel')
 # opcodes that keep a loop out of the Viterbi chain's step loops: device
 # memory and the special-function unit (the workers' loops have them)
@@ -224,14 +227,19 @@ def main():
     with open(os.path.join(opts.out, 'kernel_sass.json'), 'w') as f:
         json.dump(result, f, indent=1)
     from poreplex_torch.kernels import lstm as klstm
-    usage, spilling = usage_of(source_report(opts.out, 'lstm.cu'),
-                               GENERAL_LSTM)
+    lstm_report = source_report(opts.out, 'lstm.cu')
+    usage, spilling = usage_of(lstm_report, GENERAL_LSTM)
     print('general LSTM design (blocks of at most {} and {} threads): {}; '
           '{}'.format(klstm.G_MAX_THREADS, 2 * klstm.G_LAYER_THREADS,
                       ', '.join('{} {} registers'.format(label, u[0])
                                 for label, u in sorted(usage.items())),
                       'spills: ' + ', '.join(spilling) if spilling
                       else 'no spill'))
+    rusage, rspilling = usage_of(lstm_report, REGISTER_LSTM)
+    print('register LSTM design: {}; {}'.format(
+        ', '.join('{} {} registers'.format(label, u[0])
+                  for label, u in sorted(rusage.items())),
+        'spills: ' + ', '.join(rspilling) if rspilling else 'no spill'))
     vusage, vspilling = usage_of(source_report(opts.out, 'viterbi.cu'),
                                  VITERBI)
     from poreplex_torch.kernels import viterbi as kvit
@@ -258,8 +266,8 @@ def main():
         'not found or not clean in ' + ', '.join(unclean) if unclean else
         'every instantiation\'s forward and backtrace loops found, with no '
         'branch besides the back edge and no call'))
-    failed = (spilling or not usage or vspilling or vwide or not vusage or
-              unclean or not steps)
+    failed = (spilling or not usage or rspilling or not rusage or
+              vspilling or vwide or not vusage or unclean or not steps)
     return 1 if failed else 0
 
 

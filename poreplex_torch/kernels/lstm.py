@@ -9,12 +9,14 @@ designs, which ``plan`` picks from the shapes:
   lstm_last           one LSTM layer, the last h                  [B, H]
 
 * The register design (one launch): the scaler's and the demultiplexer's
-  shipped shapes and every narrower one. The kernels are instantiated at
-  the widths of ``STACKED_HIDDEN``, ``SEQ_HIDDEN`` and ``LAST_HIDDEN``, the
-  first two for a width-1 input, whose projection they fold in whole; a
-  narrower layer runs at the next such width with inert units (zero
-  kernel, recurrent and bias entries, so its h stays 0 and adds exact
-  zeros), and stacked layers at the wider one's. The LSTM's input product
+  shipped shapes and every narrower one, and a BiLSTM of up to 64 units.
+  The kernels are instantiated at the widths of ``STACKED_HIDDEN``,
+  ``SEQ_HIDDEN`` and ``LAST_HIDDEN``, the first two for a width-1 input,
+  whose projection they fold in whole; a narrower layer runs at the next
+  such width with inert units (zero kernel, recurrent and bias entries, so
+  its h stays 0 and adds exact zeros), and stacked layers at the wider
+  one's. The BiLSTM's kernel makes its inert units itself: it takes the
+  weights unpadded and writes [B, T, 2H] whole. The LSTM's input product
   is one ``torch.matmul`` (hoisted out of the recurrence, as in the JAX
   package), and its kernel adds the bias itself.
 * The general design, any other shape (wider layers, a wider input): one
@@ -60,10 +62,12 @@ _SIGNATURES = {
     'pp_lstm_launch_shape': [_I, _I, _I, _I, _P],
 }
 # the register design's widths (csrc/lstm.cu STACKED_WIDTHS, SEQ_WIDTHS,
-# LAST_WIDTHS): the shipped networks' and the BiLSTM's widest without a
-# register spill
+# LAST_WIDTHS): the shipped networks' and, for the BiLSTM, every multiple of
+# 8 from 48 to its widest without a register spill. A narrower stacked or
+# last layer is padded to the next such width with inert units;
+# bilstm_kernel takes a layer of its own width unpadded at the next one
 STACKED_HIDDEN = (48,)
-SEQ_HIDDEN = (48, 64)
+SEQ_HIDDEN = (48, 56, 64)
 LAST_HIDDEN = (48, 64)
 # a block of the register design holds 2 reads; a cluster of the general
 # design G_ROWS reads, and each of its blocks G_SPLIT lanes a unit it owns
@@ -404,22 +408,20 @@ def bidirectional_lstm(fwd_params, bwd_params, xs):
                         True, launch)
         _launched('bidirectional_lstm', code, launch, inputs == 1)
         return out
-    width = launch.hidden
-    kf, bf, rf = _pad_layer(fwd_params, 1, width)
-    kb, bb, rb = _pad_layer(bwd_params, 1, width)
-    out = torch.empty((batch, seqlen, 2 * width), dtype=torch.float32,
+    # bilstm_kernel takes the weights as they are, at the layer's width,
+    # and writes seq [B, T, 2H] whole
+    out = torch.empty((batch, seqlen, 2 * hidden), dtype=torch.float32,
                       device=xs.device)
-    _build.require_cuda('bidirectional_lstm', xs, kf, bf, rf, kb, bb, rb, out)
+    tensors = [p[key] for p in (fwd_params, bwd_params)
+               for key in ('kernel', 'bias', 'recurrent')]
+    _build.require_cuda('bidirectional_lstm', xs, *tensors, out)
     p = _build.ptr
     with _build.device_guard(xs):
-        code = _lib().pp_lstm_seq(
-            p(xs), p(kf), p(bf), p(rf), p(kb), p(bb), p(rb), p(out), batch,
-            seqlen, width, _build.stream(xs.device))
+        code = _lib().pp_lstm_seq(p(xs), *[p(t) for t in tensors], p(out),
+                                  batch, seqlen, hidden,
+                                  _build.stream(xs.device))
     _launched('bidirectional_lstm', code, launch)
-    if width == hidden:
-        return out
-    return torch.cat([out[..., :hidden], out[..., width:width + hidden]],
-                     dim=-1)
+    return out
 
 
 def lstm_last(params, xs):

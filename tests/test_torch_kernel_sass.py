@@ -78,3 +78,53 @@ def test_a_loop_that_holds_another_is_not_innermost():
     assert kernel_sass.innermost_loops(code) == [
         dict(first='0x10', last='0x20', instructions=2, float_compares=1,
              inner_branches=0, calls=0)]
+
+
+# -Xptxas -v of the register BiLSTM as --lstm-widths compiles it: the
+# instantiations at 56 and 64 (the template takes the layer's width n as
+# a third int), one past them that spills, and a general kernel
+LSTM_PTXAS = """ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__14cb9a2c_7_lstm_cu_b38557b613bilstm_kernelILi56EEEvPKfS2_S2_S2_S2_S2_S2_Pfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__14cb9a2c_7_lstm_cu_b38557b613bilstm_kernelILi56EEEvPKfS2_S2_S2_S2_S2_S2_Pfiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 186 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__14cb9a2c_7_lstm_cu_b38557b613bilstm_kernelILi64EEEvPKfS2_S2_S2_S2_S2_S2_Pfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__14cb9a2c_7_lstm_cu_b38557b613bilstm_kernelILi64EEEvPKfS2_S2_S2_S2_S2_S2_Pfiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 226 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__14cb9a2c_7_lstm_cu_b38557b613bilstm_kernelILi72EEEvPKfS2_S2_S2_S2_S2_S2_Pfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__14cb9a2c_7_lstm_cu_b38557b613bilstm_kernelILi72EEEvPKfS2_S2_S2_S2_S2_S2_Pfiii
+    232 bytes stack frame, 252 bytes spill stores, 252 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__14cb9a2c_7_lstm_cu_b38557b619lstm_general_kernelILb1EEEvNS_12GeneralLayerES1_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__14cb9a2c_7_lstm_cu_b38557b619lstm_general_kernelILb1EEEvNS_12GeneralLayerES1_iiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 89 registers, used 1 barriers, 464 bytes cmem[0]
+"""
+
+
+def test_register_lstm_spills_are_found():
+    """kernel_sass.py fails its run on a register LSTM instantiation that
+    spills: usage_of reads the register kernels' instantiations apart
+    from the general design's and names the one that spills."""
+    usage, spilling = kernel_sass.usage_of(LSTM_PTXAS,
+                                           kernel_sass.REGISTER_LSTM)
+    assert usage == {'bilstm_kernel<56>': (186, 0, 0, 0),
+                     'bilstm_kernel<64>': (226, 0, 0, 0),
+                     'bilstm_kernel<72>': (168, 232, 252, 252)}
+    assert spilling == ['bilstm_kernel<72>']
+    general, none = kernel_sass.usage_of(LSTM_PTXAS, kernel_sass.GENERAL_LSTM)
+    assert general == {'lstm_general_kernel<true>': (89, 0, 0, 0)}
+    assert none == []
+
+
+def test_width_probe_is_one_past_each_list():
+    """--lstm-widths compiles the widest instantiated width and the next
+    one (the BiLSTM's widths are multiples of 8, the others of 16); the
+    BiLSTM's every width."""
+    from poreplex_torch.kernels import lstm as klstm
+    for name, widths, step in (('STACKED_WIDTHS', klstm.STACKED_HIDDEN, 16),
+                               ('SEQ_WIDTHS', klstm.SEQ_HIDDEN, 8),
+                               ('LAST_WIDTHS', klstm.LAST_HIDDEN, 16)):
+        assert kernel_sass.PROBE_WIDTHS[name][-2:] == \
+            (widths[-1], widths[-1] + step)
+    assert kernel_sass.PROBE_WIDTHS['SEQ_WIDTHS'] == (48, 56, 64, 72)

@@ -6,7 +6,7 @@ interpret mode, and the wrappers' choice of kernel design for each shape
 (``kernels.lstm.plan``, ``kernels.viterbi.plan``), checked on 'meta'
 tensors, which take the kernel path without a card.
 
-LSTMs: B = 3, T = 50, H in {1, 20, 56, 96, 128}, input width 1 and 3, and
+LSTMs: B = 3, T = 50, H in {1, 20, 52, 56, 96, 128}, input width 1 and 3, and
 stacked layers of unequal widths; within 5e-5 absolute (the bound of
 tests/test_torch_rnn.py). Viterbi: 1, 3, 7 and 8 states x 1, 3, 4 and 5
 components (5: the kernels' loop over K), and the tie HMM at 7 and 8
@@ -29,7 +29,7 @@ from poreplex_torch.ops import viterbi as vit_ops
 
 ATOL = 5e-5
 LOGP_RTOL = 1e-6
-HIDDEN = (1, 20, 56, 96, 128)
+HIDDEN = (1, 20, 52, 56, 96, 128)
 INPUTS = (1, 3)
 STACKED_PAIRS = ((64, 32), (32, 96))
 STATES = (1, 3, 7, 8)
@@ -197,6 +197,12 @@ def warps(units, most):
     return min(most, -(-units // 8) * 32)
 
 
+# the register kernels' instantiated widths: the shipped networks', and
+# for the BiLSTM every multiple of 8 from 48 to 64
+REGISTER_WIDTHS = {'lstm2_stacked': (48,), 'bidirectional_lstm': (48, 56, 64),
+                   'lstm_last': (48, 64)}
+
+
 def expected_plan(name, inputs, layers, batch):
     """The design the wrapper must pick: the register kernels at their
     widths (the narrowest instantiated width that holds the layer; stacked
@@ -207,9 +213,7 @@ def expected_plan(name, inputs, layers, batch):
     layer at most 256). Returns (route, [(hidden,
     shape, cluster, rows)])."""
     hiddens = [h for _, h in layers]
-    widths = {'lstm2_stacked': klstm.STACKED_HIDDEN,
-              'bidirectional_lstm': klstm.SEQ_HIDDEN,
-              'lstm_last': klstm.LAST_HIDDEN}[name]
+    widths = REGISTER_WIDTHS[name]
     padded = [w for w in widths if w >= max(hiddens)]
     if padded and (inputs == 1 or name == 'lstm_last'):
         width = padded[0]
@@ -244,6 +248,9 @@ CLUSTER_CASES = [
 @pytest.mark.parametrize('case', LSTM_CASES + [
     ('lstm2_stacked', 1, ((1, 48), (48, 48))),
     ('bidirectional_lstm', 1, ((1, 48), (1, 48))),
+    ('bidirectional_lstm', 1, ((1, 49), (1, 49))),
+    ('bidirectional_lstm', 1, ((1, 64), (1, 64))),
+    ('bidirectional_lstm', 1, ((1, 65), (1, 65))),
     ('lstm_last', 96, ((96, 64),)),
     ('lstm_last', 112, ((112, 128),)),
     ('lstm2_stacked', 1, ((1, 40), (40, 24))),
@@ -419,13 +426,42 @@ def test_cluster_partition_changes_no_sum(name, inputs, widths, cluster):
 
 def test_shipped_shapes_keep_their_kernels():
     """The scaler, BiLSTM and LSTM(64) of the shipped networks run on the
-    register kernels at their own widths, unpadded."""
+    register kernels at their own widths, unpadded; so does the widened
+    preset's BiLSTM(56)."""
     assert klstm.plan('lstm2_stacked', 256, 1, 48, 48).launches[0][:2] == \
         ('lstm2_stacked_kernel', 48)
     assert klstm.plan('bidirectional_lstm', 256, 1, 48).launches[0][:2] == \
         ('bilstm_kernel', 48)
     assert klstm.plan('lstm_last', 256, 96, 64).launches[0][:2] == \
         ('lstm_last_kernel', 64)
+    assert klstm.plan('bidirectional_lstm', 256, 1,
+                      simulate.WIDENED_SEQ_HIDDEN).launches[0][:3] == \
+        ('bilstm_kernel', 56, (2, 224, 128))
+
+
+@pytest.mark.parametrize('hidden', (20, 48, 49, 52, 56, 57, 64))
+def test_bilstm_kernel_takes_the_layer_unpadded(hidden, monkeypatch):
+    """A BiLSTM of up to 64 units with a width-1 input reaches its kernel
+    with the caller's own weight tensors (no padded copy) and an output
+    of [B, T, 2H], no column past 2H (no copy after the launch): the
+    tensors the wrapper hands to the launch, caught on 'meta' tensors,
+    which stop it there."""
+    seen = []
+
+    def require_cuda(name, *tensors):
+        seen.append(tensors)
+        raise ValueError('no kernel for device meta')
+    monkeypatch.setattr(_build, 'require_cuda', require_cuda)
+    fwd, bwd = meta_layer(1, hidden), meta_layer(1, hidden)
+    xs = torch.empty(3, 5, 1, device='meta')
+    with pytest.raises(ValueError, match='no kernel for device meta'):
+        klstm.bidirectional_lstm(fwd, bwd, xs)
+    (tensors,) = seen
+    assert tensors[0] is xs
+    assert all(got is want for got, want in zip(tensors[1:7], [
+        p[key] for p in (fwd, bwd)
+        for key in ('kernel', 'bias', 'recurrent')]))
+    assert tuple(tensors[7].shape) == (3, 5, 2 * hidden)
 
 
 def meta_layer(inputs, hidden):
