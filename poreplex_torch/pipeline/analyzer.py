@@ -34,7 +34,7 @@ from ..utils import GLOBAL_TIMER, pack_unhandled_exception, trace
 from .engine import DeviceEngine
 # EVENT_COLUMNS and pool_signal are PHASE A's, named here for callers
 from .ingest import (EVENT_COLUMNS, IngestPool, ingest_params,  # noqa: F401
-                     load_one, load_reads, pool_signal)
+                     load_one, load_summed, pool_signal)
 from .polya import PolyaAnalyzer
 from .read import ReadRecord
 from .source import DirectorySource
@@ -124,16 +124,15 @@ class BatchAnalyzer:
             payloads = None
             if self.ingest_pool is not None:
                 try:
-                    payloads, timers = self.ingest_pool.load(reads)
+                    payloads, parts = self.ingest_pool.load(reads)
                 except Exception:
                     traceback.print_exc()
                     self.close()
-                else:
-                    for name, seconds in timers.items():
-                        GLOBAL_TIMER.add(name, seconds)
             if payloads is None:
-                payloads = load_reads(reads, self.source,
-                                      self.ingest_params, trace)
+                payloads, parts = load_summed(reads, self.source,
+                                              self.ingest_params)
+            for name, seconds in parts.items():
+                GLOBAL_TIMER.add_sum(name, seconds)
             results, records = [], []
             for p in payloads:
                 self._file_payload(p, results, records)

@@ -16,7 +16,7 @@ reader leaves (guppy Move tables, other layouts, any native error); a
 ``MemorySource`` is sent to each worker once.
 
 Workers import numpy, scipy and, inside the FAST5 functions, h5py; never
-torch. The in-process path runs the same ``load_reads``, so both share one
+torch. The in-process path runs the same ``load_summed``, so both share one
 status lattice: ``disappeared``, ``irregular_fast5``,
 ``scaler_signal_too_short``, a deferred basecall error, and the packed
 report of an unhandled exception.
@@ -40,7 +40,7 @@ from .source import DirectorySource
 # only these members); the event dumps take every column
 EVENT_COLUMNS = ('mean', 'start', 'move', 'p_model_state')
 
-# the stages of a read's load, timed as spans of A:fast5_load
+# the stages of a read's load, each summed over a batch inside A:fast5_load
 STAGES = ('A:open', 'A:raw', 'A:pool', 'A:bcall')
 
 
@@ -187,6 +187,22 @@ def load_reads(reads, source, params, timer, openers=None):
     return payloads
 
 
+def load_summed(reads, source, params, openers=None):
+    """load_reads with each of STAGES timed as one sum over the reads:
+    (payloads, {stage: wall seconds}), each stage added once a batch
+    rather than once a read."""
+    totals = dict.fromkeys(STAGES, 0.0)
+
+    @contextlib.contextmanager
+    def timer(name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            totals[name] += time.perf_counter() - t0
+    return load_reads(reads, source, params, timer, openers), totals
+
+
 # ---------------------------------------------------------------- native
 
 class NativeRead:
@@ -295,16 +311,6 @@ def _picklable(exc):
 def load_batch_worker(reads):
     """In a worker: (payloads, {stage: wall seconds}) of a chunk of
     (filename, read_id) entries of the worker's source."""
-    totals = dict.fromkeys(STAGES, 0.0)
-
-    @contextlib.contextmanager
-    def timer(name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            totals[name] += time.perf_counter() - t0
-
     native = None
     # the event dumps take every column, which only h5py reads
     if (isinstance(_SOURCE, DirectorySource) and
@@ -313,7 +319,7 @@ def load_batch_worker(reads):
         native = NativeOpener(_SOURCE.topdir)
     try:
         openers = None if native is None else [native, _SOURCE.opener()]
-        payloads = load_reads(reads, _SOURCE, _PARAMS, timer, openers)
+        payloads, totals = load_summed(reads, _SOURCE, _PARAMS, openers)
     finally:
         if native is not None:
             native.close()

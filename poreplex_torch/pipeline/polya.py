@@ -24,7 +24,7 @@ from ..config import resolve_device
 from ..ops import event_detection as ed_ops
 from ..ops import polya_round as round_ops
 from ..parallel.sharding import shard_batch_arrays
-from ..utils import trace
+from ..utils import GLOBAL_TIMER, trace
 from .engine import DeviceEngine
 
 # window buckets: a window is padded to the smallest bucket that holds it
@@ -235,6 +235,7 @@ class PolyaAnalyzer:
             wires.append(q)
             offset += len(q)
         launched, streams = [], {}
+        GLOBAL_TIMER.count('C:polya/windows@{}'.format(blen), len(chunk))
         with trace('C:polya/launch'):
             for device, lo, hi, (meta_d,) in shard_batch_arrays(
                     self.devices, meta):

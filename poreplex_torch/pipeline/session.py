@@ -27,6 +27,7 @@ import asyncio
 import os
 import sys
 import threading
+import time
 import traceback
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -45,6 +46,41 @@ from .source import DirectorySource
 # sinks that copy input FAST5 files or write HDF5 dumps
 FILE_SINKS = ('fast5_output', 'nanopolish_output', 'dump_adapter_signals',
               'dump_basecalls')
+
+
+class ComputeIdle:
+    """The compute thread's idle time between two batches, as two spans
+    that tile it: ``W:compute_waits_load`` from the end of batch N-1's
+    ``S:analyze_batch`` to the end of batch N's PHASE A, where PHASE A
+    ends later, added when PHASE A ends; ``W:compute_handoff`` from the
+    later of the two to the start of batch N's ``S:analyze_batch`` (the
+    event loop's hand-off), added when it starts. The first batch has
+    neither. Batch ids are consecutive in compute order."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.loaded = {}        # batch id: perf_counter when PHASE A ended
+        self.computed = {}      # batch id: perf_counter when compute ended
+
+    def phase_a_ended(self, batchid):
+        with self.lock:
+            now = time.perf_counter()
+            self.loaded[batchid] = now
+            before = self.computed.get(batchid - 1)
+        if before is not None:
+            GLOBAL_TIMER.add('W:compute_waits_load', now - before)
+
+    def compute_starts(self, batchid):
+        now = time.perf_counter()
+        with self.lock:
+            loaded = self.loaded.pop(batchid, None)
+            before = self.computed.pop(batchid - 1, None)
+        if loaded is not None and before is not None:
+            GLOBAL_TIMER.add('W:compute_handoff', now - max(loaded, before))
+
+    def compute_ended(self, batchid):
+        with self.lock:
+            self.computed[batchid] = time.perf_counter()
 
 
 class ProcessingSession:
@@ -84,6 +120,7 @@ class ProcessingSession:
         # the futures of the two batches submitted last, each done once
         # that batch has computed (or ended without computing)
         self.computed = (None, None)
+        self.idle = ComputeIdle()
 
         self.executor_compute = ThreadPoolExecutor(1)
         self.executor_io = ThreadPoolExecutor(1)
@@ -232,6 +269,25 @@ class ProcessingSession:
         load_batch; returns (results, aux)."""
         return self.get_analyzer().process_batch(None, preloaded)
 
+    def _phase_a(self, batchid, files):
+        """On a monitor thread: load_batch with the batch's id on the
+        thread's spans."""
+        with GLOBAL_TIMER.batch(batchid):
+            preloaded = self.load_batch(files)
+            self.idle.phase_a_ended(batchid)
+        return preloaded
+
+    def _compute(self, batchid, preloaded):
+        """On the compute thread: analyze_batch, timed as
+        ``S:analyze_batch`` (and its thread CPU as ``S:analyze_batch/cpu_ns``)
+        with the batch's id on the thread's spans."""
+        with GLOBAL_TIMER.batch(batchid):
+            self.idle.compute_starts(batchid)
+            with GLOBAL_TIMER.stage('S:analyze_batch', cpu=True):
+                computed = self.analyze_batch(preloaded)
+            self.idle.compute_ended(batchid)
+        return computed
+
     def write_results(self, batchid, results, aux):
         """On the writer thread: every enabled sink, each timed as
         ``D:io_<sink method>``. Returns the alignment writer's tallies, or
@@ -240,18 +296,19 @@ class ProcessingSession:
             with GLOBAL_TIMER.stage('D:io_' + fn.__qualname__):
                 return fn(*args)
 
-        if self.fastq_writer is not None:
-            timed(self.fastq_writer.write_sequences, results)
-        if self.fast5_writer is not None:
-            timed(self.fast5_writer.transfer_reads, results)
-        if self.npreaddb_writer is not None:
-            timed(self.npreaddb_writer.write_sequences, results)
-        rescounts = None
-        if self.alignment_writer is not None:
-            rescounts = timed(self.alignment_writer.process, results)
-        if self.dump_writer is not None:
-            timed(self.dump_writer.write_aux, batchid, aux)
-        timed(self.seqsummary_writer.write_results, results)
+        with GLOBAL_TIMER.batch(batchid):
+            if self.fastq_writer is not None:
+                timed(self.fastq_writer.write_sequences, results)
+            if self.fast5_writer is not None:
+                timed(self.fast5_writer.transfer_reads, results)
+            if self.npreaddb_writer is not None:
+                timed(self.npreaddb_writer.write_sequences, results)
+            rescounts = None
+            if self.alignment_writer is not None:
+                rescounts = timed(self.alignment_writer.process, results)
+            if self.dump_writer is not None:
+                timed(self.dump_writer.write_aux, batchid, aux)
+            timed(self.seqsummary_writer.write_results, results)
         return rescounts
 
     async def run_process_batch(self, batchid, files):
@@ -280,12 +337,12 @@ class ProcessingSession:
         try:
             if before_last is not None:
                 await asyncio.shield(before_last)
-            preloaded = await self.run_in_executor_mon(self.load_batch,
-                                                       files)
+            preloaded = await self.run_in_executor_mon(self._phase_a,
+                                                       batchid, files)
             if last is not None:
                 await asyncio.shield(last)
             results, aux = await self.loop.run_in_executor(
-                self.executor_compute, self.analyze_batch, preloaded)
+                self.executor_compute, self._compute, batchid, preloaded)
             computed.set_result(None)
 
             # a read already done (a live-mode re-feed) is dropped here

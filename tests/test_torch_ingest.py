@@ -16,7 +16,9 @@ poreplex-tpu's session with its ingest workers:
   FASTQ and manifest bytes as one with -p 1 (no worker) and as
   poreplex-tpu's session with ingest_processes=2;
 - a session reads batch k+1 on a monitor thread while batch k computes,
-  computes in scan order, and holds at most two batches' reads.
+  computes in scan order, and holds at most two batches' reads;
+- each part of PHASE A is added once a batch, in the span log as a sum
+  inside its A:fast5_load.
 
 The spawned pools are made once a module (each takes a second or two)."""
 
@@ -269,8 +271,8 @@ def test_broken_pool_falls_back_in_process(analyzers):
 def sessions(tmp_path_factory):
     """The outputs of one fixture run by a torch session with -p 2 and one
     with -p 1, and by poreplex-tpu's session with ingest_processes=2; the
-    -p 2 session's workers as IngestPool.warm saw them and its stage
-    timers."""
+    -p 2 session's workers as IngestPool.warm saw them; each torch
+    session's stage timers and span log, by -p."""
     from poreplex_tpu.config import build_config as jax_build_config
     from poreplex_tpu.pipeline.session import \
         ProcessingSession as JaxSession
@@ -284,7 +286,7 @@ def sessions(tmp_path_factory):
     options = dict(device_batch_size=DEVICE_BATCH, barcoding=True,
                    trim_adapter=True, measure_polya=True,
                    filter_unsplit_reads=True, quiet=True)
-    outputs, workers, stages = {}, {}, None
+    outputs, workers, timers = {}, {}, {}
     warm = ingest.IngestPool.warm
     for parallel in (2, 1):
         seen = workers[parallel] = []
@@ -299,11 +301,11 @@ def sessions(tmp_path_factory):
         reduce_shapes(config)
         GLOBAL_TIMER.totals.clear()
         GLOBAL_TIMER.counts.clear()
-        with pytest.MonkeyPatch.context() as mp:
+        with pytest.MonkeyPatch.context() as mp, \
+                GLOBAL_TIMER.recording() as log:
             mp.setattr(ingest.IngestPool, 'warm', recording_warm)
             assert ProcessingSession.run(config, LOGGER) is not None
-        if parallel == 2:
-            stages = GLOBAL_TIMER.snapshot()
+        timers[parallel] = GLOBAL_TIMER.snapshot(), log
         outputs[parallel] = output_files(str(out))
 
     out = tmp_path_factory.mktemp('ingest-session-jax')
@@ -312,7 +314,7 @@ def sessions(tmp_path_factory):
     reduce_shapes(jconfig)
     assert JaxSession.run(jconfig, LOGGER) is not None
     outputs['jax'] = output_files(str(out))
-    return outputs, workers, stages
+    return outputs, workers, timers
 
 
 def written(files):
@@ -349,13 +351,47 @@ def test_parallel_two_starts_two_workers_without_torch(sessions):
         assert 'torch' not in packages and 'jax' not in packages
 
 
-def test_session_ingest_parts_within_fast5_load(sessions):
-    _, _, stages = sessions
+@pytest.mark.parametrize('parallel', [2, 1])
+def test_session_ingest_parts_within_fast5_load(sessions, parallel):
+    """Each part of PHASE A is added once a batch, over workers and in
+    process alike."""
+    _, _, timers = sessions
+    stages, _ = timers[parallel]
     load = stages['A:fast5_load']
     assert load['calls'] == 1
     for name in ingest.STAGES:
-        assert stages[name]['calls'] == 1
+        assert stages[name]['calls'] == load['calls']
         assert stages[name]['total_s'] <= load['total_s'], name
+
+
+@pytest.mark.parametrize('parallel', [2, 1])
+def test_session_span_log(sessions, parallel):
+    """A session's span log: PHASE A's parts are sums inside its
+    A:fast5_load, the batch's compute one S:analyze_batch holding the
+    analyzer's phases, and the poly(A) windows counted by bucket, all
+    with the batch's id."""
+    _, _, timers = sessions
+    stages, log = timers[parallel]
+    by_name = {}
+    for span in log.spans:
+        by_name.setdefault(span.name, []).append(span)
+    (load,) = by_name['A:fast5_load']
+    (compute,) = by_name['S:analyze_batch']
+    assert load.batch == compute.batch == 0
+    assert load.thread != compute.thread
+    for name in ingest.STAGES:
+        (part,) = by_name[name]
+        assert (part.kind, part.parent, part.batch) == ('sum', load.id, 0)
+    (stage1,) = by_name['B:device_stage1']
+    assert (stage1.parent, stage1.thread) == (compute.id, compute.thread)
+    windows = [c for c in log.counts if c[0].startswith('C:polya/windows@')]
+    assert windows and all(c[5] == 0 and c[3] == compute.thread
+                           for c in windows)
+    assert sum(c[1] for c in windows) == sum(
+        row['count'] for name, row in stages.items()
+        if name.startswith('C:polya/windows@'))
+    assert sum(c[1] for c in windows) >= stages['C:polya/launch']['calls']
+    assert not [s for s in log.spans if s.name.startswith('W:')]
 
 
 def test_phase_a_overlaps_the_batch_before(tmp_path, monkeypatch):
