@@ -28,7 +28,12 @@
    converted weights); the LSTM lines also give the time per step, the
    peak detector's and the Viterbis' the time per frame and the DP's the
    time per column, each with the launch (rows per block, threads,
-   blocks);
+   blocks); then the poly(A) round replayed from captured CUDA graphs
+   (ops.polya_round.RoundGraph) against the round op by op, heads and
+   spikes bit for bit: blocks of 11 and 16 windows (one row capacity) at
+   blen 8,192 and 16,384, every block once, then graphs A, B, A in turn
+   before any result is read; the kernel counts equal to the rounds run;
+   the host ms of a block op by op and replayed;
 3. simulates 512 reads (basecalls included, poly(A) tails of 500 to
    20,000 samples, transcripts of 9,000 to 90,000 raw samples, one in 16
    made of two molecules) from a fixed seed and runs them through
@@ -69,8 +74,10 @@
 5. runs the same 512 reads, from memory, through the port's command line
    (commandline.main with the main path's options, batches of 256): every
    kernel must launch; prints reads/s from main entered to main returned
-   and the stage timers; each read's summary row and FASTQ record must
-   equal the main path's and .processed-reads must list every okay read;
+   and the stage timers, and the poly(A) graph counters (every launch
+   block a capture or a replay); each read's summary row and FASTQ
+   record must equal the main path's and .processed-reads must list every
+   okay read;
    resumed over the same reads it must analyse only the reads that were
    not okay, and over the okay reads it must launch no kernel and leave a
    header-only summary; then ``python -m poreplex_torch --version`` must
@@ -682,6 +689,114 @@ def check_dp(rng):
     log('polya_dp on simulate.dp_cases in pack A and in pack B == plain '
         'version, 48 rows at K = ' + ', '.join(held))
     return rows
+
+
+# the graph check's launch blocks: two row counts of one row capacity, in
+# two buckets, from a generator of its own
+GRAPH_ROWS = (11, 16)
+GRAPH_BUCKETS = (8192, 16384)
+GRAPH_SEED = SEED + 6
+# the poly(A) graph counters of a session
+GRAPH_COUNTERS = ('C:polya/graph_capture', 'C:polya/graph_replay',
+                  'C:polya/graph_pad_rows')
+
+
+def polya_block(rng, rows, blen, polya_config):
+    """A launch block of ``rows`` poly(A) windows of bucket ``blen`` as
+    PolyaAnalyzer._launch builds it: (u16 wire, meta [rows, META_COLS])."""
+    from poreplex_torch.ops.polya_round import META_COLS
+    from poreplex_torch.pipeline.polya import quantize
+    xs, lens = polya_windows(rng, rows, blen)
+    loc, scale = polya_config['polya_mean_dist']
+    half = scale * polya_config['polya_mean_z_cutoff']
+    meta = np.zeros((rows, META_COLS), np.float32)
+    wires, offset = [], 0
+    for i in range(rows):
+        q, (lo, step) = quantize(xs[i, :lens[i]], (1.0, 0.0))
+        meta[i] = (offset, len(q), 200, loc - half, loc + half, lo, step)
+        wires.append(q)
+        offset += len(q)
+    return np.concatenate(wires), meta
+
+
+def check_polya_graphs(polya_config):
+    """The poly(A) round replayed from captured CUDA graphs
+    (ops.polya_round.RoundGraph) against the round op by op on the same
+    blocks, heads and spikes bit for bit: blocks of 11 and 16 windows (one
+    row capacity, so one graph) at blen 8,192 and 16,384; first every
+    block once (a graph's first call captures), then graphs A, B, A in
+    turn before any result is read. The kernel counts must equal the
+    rounds run. Prints the host ms of a block op by op and replayed."""
+    from poreplex_torch import kernels
+    from poreplex_torch.ops import polya_round as round_ops
+    from poreplex_torch.pipeline import polya as polya_mod
+    rng = np.random.default_rng(GRAPH_SEED)
+    analyzer = polya_mod.PolyaAnalyzer(polya_config, device=DEVICE)
+    device = analyzer.device
+    before = dict(kernels.launches)
+    blocks = []
+    for blen in GRAPH_BUCKETS:
+        params = dict(analyzer._round, max_spikes=polya_mod._MAX_SPIKES,
+                      max_peaks=polya_mod._BUCKET_PEAKS[blen])
+        for rows in GRAPH_ROWS:
+            wire, meta = polya_block(rng, rows, blen, polya_config)
+            eager = round_ops.polya_round(
+                analyzer._upload([wire], device),
+                torch.from_numpy(meta).to(device), blen=blen, **params)
+            graph = round_ops.round_graph(
+                device, blen, polya_mod.row_capacity(rows, blen), **params)
+            blocks.append(dict(blen=blen, rows=rows, graph=graph, wire=wire,
+                               meta=meta, ref=[t.cpu() for t in eager]))
+    if len({id(b['graph']) for b in blocks}) != len(GRAPH_BUCKETS):
+        raise AssertionError('blocks of {} rows took more than one graph a '
+                             'bucket'.format(GRAPH_ROWS))
+    a_11, a_16, b_11, b_16 = blocks
+    turns = [('every block once', blocks),
+             ('A, B, A in turn', [a_16, b_11, a_11])]
+    captured = 0
+    for label, order in turns:
+        got = [b['graph'](b['wire'], b['meta']) for b in order]
+        for b, (heads, spikes, capture) in zip(order, got):
+            captured += capture
+            for name, g, r in (('heads', heads, b['ref'][0]),
+                               ('spikes', spikes, b['ref'][1])):
+                g = g.cpu()
+                if g.shape != r.shape or not np.array_equal(
+                        g.numpy().view(np.int32), r.numpy().view(np.int32)):
+                    raise AssertionError(
+                        'poly(A) graph ({}): {} of {} rows at blen {} differ '
+                        'from the round op by op'.format(label, name,
+                                                         b['rows'], b['blen']))
+    rounds = len(blocks) + sum(len(order) for _, order in turns)
+    for name in ('detect_peaks', 'polya_dp'):
+        if kernels.launches[name] - before[name] != rounds:
+            raise AssertionError('{} counted {} launches for {} rounds'.format(
+                name, kernels.launches[name] - before[name], rounds))
+
+    def host_ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return enqueue, (time.perf_counter() - t0) * 1e3 / reps
+
+    b = a_16
+    params = dict(analyzer._round, max_spikes=polya_mod._MAX_SPIKES,
+                  max_peaks=polya_mod._BUCKET_PEAKS[b['blen']])
+    eager_ms = host_ms(lambda: round_ops.polya_round(
+        analyzer._upload([b['wire']], device),
+        torch.from_numpy(b['meta']).to(device), blen=b['blen'], **params))
+    graph_ms = host_ms(lambda: b['graph'](b['wire'], b['meta']))
+    log('poly(A) graphs: {} blocks of {} rows at blen {} ({} captured here) '
+        'equal to the round op by op, heads and spikes bit for bit, also '
+        'with A, B, A replayed in turn; launches counted {} a kernel; a '
+        'block of 16 at 8,192: op by op {:.2f} ms enqueued, {:.2f} ms '
+        'done; replayed {:.2f} and {:.2f}'.format(
+            rounds - len(blocks), GRAPH_ROWS, GRAPH_BUCKETS, captured,
+            rounds, *eager_ms, *graph_ms))
 
 
 def check_unsplit_viterbi(unsplitmodel, rng, shapes):
@@ -1636,6 +1751,13 @@ def session_through_cli(config, results, reads, main_outdir, card):
             'included); {}'.format(N_READS, batches, rate, wall_s, card))
         log('session through the CLI: launches', json.dumps(launches))
         log('session through the CLI: stage timers', json.dumps(stages))
+        graphs = {name: stages.get(name, {}).get('count', 0)
+                  for name in GRAPH_COUNTERS}
+        log('session through the CLI: poly(A) graphs', json.dumps(graphs))
+        if (graphs['C:polya/graph_capture'] + graphs['C:polya/graph_replay']
+                != stages['C:polya/launch']['calls']):
+            raise AssertionError('the CLI session\'s poly(A) launches did '
+                                 'not all run a graph: {}'.format(graphs))
 
         check_outputs(config, results, outdir)
         header, rows = summary_rows(outdir)
@@ -3494,6 +3616,7 @@ def main(argv):
         del engine
         for row in rows:
             log(kernel_line(row))
+        check_polya_graphs(config['polya_dwell'])
         check_fast_div(fast_div, np.random.default_rng(FAST_DIV_SEED))
 
         (results, timings, launches, analyzer, stage1_inputs, reads,

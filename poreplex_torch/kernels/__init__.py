@@ -7,7 +7,9 @@ raises. ``launches`` counts kernel launches per wrapper, so a run can show
 that it went through the kernels; ``instantiations`` counts them by the
 kernel function and the shape it was instantiated for (the wrappers pick
 one from their inputs' shapes), e.g. ``'lstm_general_kernel'`` or
-``'viterbi_path_kernel<8,0>'``.
+``'viterbi_path_kernel<8,0>'``. A CUDA graph's capture launches nothing:
+its counts are taken off at capture (``take_counts``) and added again at
+each replay (``add_counts``).
 """
 
 import collections
@@ -34,3 +36,28 @@ def reset_launches():
     for name in launches:
         launches[name] = 0
     instantiations.clear()
+
+
+def counts():
+    """The counts as they stand: (launches, instantiations), copied."""
+    return dict(launches), collections.Counter(instantiations)
+
+
+def take_counts(before):
+    """The launches counted since ``before`` (a ``counts()``), taken off
+    the totals."""
+    launched, instantiated = before
+    taken = ({name: n - launched[name] for name, n in launches.items()},
+             instantiations - instantiated)
+    launches.update(launched)
+    instantiations.clear()
+    instantiations.update(instantiated)
+    return taken
+
+
+def add_counts(taken):
+    """Counts taken by ``take_counts``, added once more."""
+    launched, instantiated = taken
+    for name, n in launched.items():
+        launches[name] += n
+    instantiations.update(instantiated)

@@ -56,7 +56,10 @@ def compute_tstat(cs, css, lengths, w):
         return torch.cat([c[:, w:seqlen + 1],
                           c[:, seqlen:].expand(batch, w - 1)], dim=1)
 
-    recip = torch.tensor(np.float32(1) / np.float32(w), device=cs.device)
+    # filled on the device, not copied from the host, so a CUDA graph can
+    # capture it
+    recip = torch.full((), float(np.float32(1) / np.float32(w)),
+                       dtype=torch.float32, device=cs.device)
     sum1 = cs[:, :seqlen] - at_i_minus_w(cs)
     ssq1 = css[:, :seqlen] - at_i_minus_w(css)
     sum2 = at_i_plus_w(cs) - cs[:, :seqlen]

@@ -13,11 +13,21 @@ a spike table per decision pack):
 The peak detector and the DP run through their kernel wrappers; the rest
 is plain PyTorch, with XLA:CPU's float32 association where the JAX op's
 results depend on it (``ops.f32``).
+
+On a card a round is some 1,700 small ops, and dispatching them costs the
+host far more than the device's work. ``RoundGraph`` captures the round
+once per (device, window bucket, row capacity, parameters) as a CUDA graph
+and replays it: a launch's rows are padded with empty windows up to the
+capacity. Every op of the round is row-independent (scans and sums along
+a row, the median filter, the peak lanes, the DP rows), so the padding
+cannot change a real row's bits.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from .event_detection import detect_events_core
 from .f32 import fma, rowsum
 
@@ -182,6 +192,117 @@ def polya_round_core(stream, meta, *, blen, window_length1, window_length2,
 @torch.inference_mode()
 def polya_round(stream, meta, **params):
     return polya_round_core(stream, meta, **params)
+
+
+def pad_rows(meta, capacity):
+    """The [R, META_COLS] window table with all-zero rows (empty windows)
+    up to ``capacity`` rows."""
+    padded = np.zeros((capacity, META_COLS), np.float32)
+    padded[:len(meta)] = meta
+    return padded
+
+
+def real_rows(heads, spikes, rows):
+    """The first ``rows`` windows' outputs of a round over more rows, as a
+    round over those windows alone returns them: (heads [rows, HEAD_COLS],
+    spikes [2 rows, ...]), new tensors."""
+    capacity = heads.shape[0]
+    return heads[:rows].clone(), torch.cat([spikes[:rows],
+                                            spikes[capacity:capacity + rows]])
+
+
+class RoundGraph:
+    """``polya_round_core`` over ``capacity`` rows of bucket ``blen`` on one
+    card, replayed from a CUDA graph. The graph owns its inputs, the u16
+    wire (as int16, widened inside the graph) and the window table, and its
+    outputs. A call writes the inputs, replays and clones the real rows'
+    outputs, all on the card's current stream, so the graphs of a card can
+    share one memory pool. The first call runs the round eagerly on a side
+    stream, its results serving that call, and then captures."""
+
+    def __init__(self, device, blen, capacity, params):
+        self.device, self.blen, self.capacity = device, blen, capacity
+        self.params = params
+        self.wire = torch.zeros(capacity * blen + 1, dtype=torch.int16,
+                                device=device)
+        self.meta = torch.zeros((capacity, META_COLS), dtype=torch.float32,
+                                device=device)
+        self.graph = self.outputs = self.launches = None
+
+    def _round(self):
+        return polya_round_core(self.wire.to(torch.int32) & 0xFFFF,
+                                self.meta, blen=self.blen, **self.params)
+
+    @torch.inference_mode()
+    def __call__(self, wire, meta):
+        """wire: a launch's u16 windows, concatenated (at most capacity x
+        blen samples); meta: [R, META_COLS] (R <= capacity), offsets into
+        wire. Returns (heads [R, HEAD_COLS], spikes [2R, max_spikes,
+        SPIKE_COLS]) on the card, and whether this call captured. The host
+        arrays may be reused once it returns: a copy from pageable memory
+        is staged before the copy call returns."""
+        rows = len(meta)
+        with torch.cuda.device(self.device):
+            self.wire[:len(wire)].copy_(
+                torch.from_numpy(wire.view(np.int16)), non_blocking=True)
+            self.meta.copy_(torch.from_numpy(pad_rows(meta, self.capacity)),
+                            non_blocking=True)
+            if self.graph is not None:
+                self.graph.replay()
+                kernels.add_counts(self.launches)
+                return real_rows(*self.outputs, rows) + (False,)
+            return self._capture(rows) + (True,)
+
+    def _capture(self, rows):
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            eager = real_rows(*self._round(), rows)
+            before = kernels.counts()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=_pool(self.device),
+                                capture_error_mode='thread_local')
+            self.outputs = self._round()
+            graph.capture_end()
+            self.launches = kernels.take_counts(before)
+        current.wait_stream(side)
+        for t in eager:
+            t.record_stream(current)
+        self.graph = graph
+        return eager
+
+
+# captured rounds by graph_key, and each card's memory pool, which all of
+# its graphs share: a process keeps them, so sessions one after another
+# replay the same graphs
+_GRAPHS = {}
+_POOLS = {}
+
+
+def _pool(device):
+    if device not in _POOLS:
+        _POOLS[device] = torch.cuda.graph_pool_handle()
+    return _POOLS[device]
+
+
+def graph_key(device, blen, capacity, params):
+    """A captured round's key: its card, shape and every parameter baked
+    into the capture, so another preset never replays it."""
+    return (torch.device(device), blen, capacity,
+            tuple(sorted(params.items())))
+
+
+def round_graph(device, blen, capacity, **params):
+    """The RoundGraph of ``polya_round_core(..., blen=blen, **params)`` over
+    ``capacity`` rows on ``device``, made at first use."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    key = graph_key(device, blen, capacity, params)
+    if key not in _GRAPHS:
+        _GRAPHS[key] = RoundGraph(device, blen, capacity, params)
+    return _GRAPHS[key]
 
 
 def unpack_rows(heads, spikes, max_spikes):

@@ -12,9 +12,11 @@ reject decisions on the returned scalars. Windows that extend or whose
 event table was truncated form the next round, until none are left.
 
 Over several devices a launch's rows are cut into contiguous blocks, one a
-device, each device with its own copy of the launch's window stream; every
-launch of a round is enqueued on every device before the first result is
-read back.
+device, each block with its own window stream; every launch of a round is
+enqueued on every device before the first result is read back. On a card
+a block replays a captured CUDA graph of the round
+(``ops.polya_round.RoundGraph``), its rows padded with empty windows up to
+its row capacity (``row_capacity``); CPU tensors run the round op by op.
 """
 
 import numpy as np
@@ -23,7 +25,7 @@ import torch
 from ..config import resolve_device
 from ..ops import event_detection as ed_ops
 from ..ops import polya_round as round_ops
-from ..parallel.sharding import shard_batch_arrays
+from ..parallel.sharding import block_rows
 from ..utils import GLOBAL_TIMER, trace
 from .engine import DeviceEngine
 
@@ -50,12 +52,29 @@ _PACK_SAFE_LEN = 5 * 131072
 # copies)
 _LAUNCH_SAMPLES = 1 << 21
 
+# the fewest rows of a captured round
+_MIN_CAPACITY = 8
+
 
 def _bucket_len(n):
     for b in _BUCKETS:
         if n <= b:
             return b
     return ((n + _BUCKETS[-1] - 1) // _BUCKETS[-1]) * _BUCKETS[-1]
+
+
+def launch_rows(blen):
+    """The most windows of bucket ``blen`` in one launch on one device."""
+    return max(1, _LAUNCH_SAMPLES // blen)
+
+
+def row_capacity(rows, blen):
+    """The rows of the captured round that runs a launch block of ``rows``
+    windows: the next power of two, at least _MIN_CAPACITY and at most the
+    launch cap, so that each bucket has a few graphs that every round
+    reuses."""
+    return min(launch_rows(blen),
+               max(_MIN_CAPACITY, 1 << (rows - 1).bit_length()))
 
 
 def quantize(signal, affine):
@@ -210,7 +229,7 @@ class PolyaAnalyzer:
             by_bucket.setdefault(blen, []).append(t)
         launched = []
         for blen, group in sorted(by_bucket.items()):
-            rows = max(1, _LAUNCH_SAMPLES // blen) * len(self.devices)
+            rows = launch_rows(blen) * len(self.devices)
             for lo in range(0, len(group), rows):
                 launched += self._launch(group[lo:lo + rows], blen)
         with trace('C:polya/collect'):
@@ -225,28 +244,51 @@ class PolyaAnalyzer:
         """Enqueues the round of ``chunk``'s windows, its rows cut into one
         block a device; returns [(the block's tasks, blen, heads, spikes)]
         with the results still on the devices."""
-        meta = np.zeros((len(chunk), round_ops.META_COLS), np.float32)
-        wires, offset = [], 0
-        for i, t in enumerate(chunk):
-            t.wire = quantize(t.signal, t.qaffine)   # for the spike fallback
-            q, (qlo, qstep) = t.wire
-            meta[i] = (offset, len(q), t.adapter_end,
-                       *(t.polya_range or self.polya_mean_cutoff), qlo, qstep)
-            wires.append(q)
-            offset += len(q)
-        launched, streams = [], {}
+        blocks = []
+        for device, (lo, hi) in zip(self.devices, block_rows(
+                len(chunk), len(self.devices))):
+            if hi == lo:
+                continue
+            meta = np.zeros((hi - lo, round_ops.META_COLS), np.float32)
+            wires, offset = [], 0
+            for i, t in enumerate(chunk[lo:hi]):
+                # kept for the spike fallback
+                t.wire = quantize(t.signal, t.qaffine)
+                q, (qlo, qstep) = t.wire
+                meta[i] = (offset, len(q), t.adapter_end,
+                           *(t.polya_range or self.polya_mean_cutoff), qlo,
+                           qstep)
+                wires.append(q)
+                offset += len(q)
+            blocks.append((device, chunk[lo:hi], wires, meta))
+        params = dict(self._round, max_spikes=_MAX_SPIKES,
+                      max_peaks=_BUCKET_PEAKS.get(blen, self.max_peaks))
+        launched = []
         GLOBAL_TIMER.count('C:polya/windows@{}'.format(blen), len(chunk))
         with trace('C:polya/launch'):
-            for device, lo, hi, (meta_d,) in shard_batch_arrays(
-                    self.devices, meta):
-                if device not in streams:
-                    streams[device] = self._upload(wires, device)
-                heads, spikes = round_ops.polya_round(
-                    streams[device], meta_d, blen=blen,
-                    max_peaks=_BUCKET_PEAKS.get(blen, self.max_peaks),
-                    max_spikes=_MAX_SPIKES, **self._round)
-                launched.append((chunk[lo:hi], blen, heads, spikes))
+            for device, tasks, wires, meta in blocks:
+                if device.type == 'cuda':
+                    heads, spikes = self._replay_graph(device, wires, meta,
+                                                       blen, params)
+                else:
+                    heads, spikes = round_ops.polya_round(
+                        self._upload(wires, device),
+                        torch.from_numpy(meta).to(device),
+                        blen=blen, **params)
+                launched.append((tasks, blen, heads, spikes))
         return launched
+
+    @staticmethod
+    def _replay_graph(device, wires, meta, blen, params):
+        """The block's round from the captured graph of its row capacity,
+        counted as a capture or a replay and by its padding rows."""
+        capacity = row_capacity(len(meta), blen)
+        graph = round_ops.round_graph(device, blen, capacity, **params)
+        heads, spikes, captured = graph(np.concatenate(wires), meta)
+        GLOBAL_TIMER.count('C:polya/graph_capture' if captured else
+                           'C:polya/graph_replay', 1)
+        GLOBAL_TIMER.count('C:polya/graph_pad_rows', capacity - len(meta))
+        return heads, spikes
 
     # ------------------------------------------------------------------
     def _replay(self, t, stride):

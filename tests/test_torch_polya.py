@@ -55,9 +55,10 @@ def round_params(config, max_peaks, max_spikes):
                        config['polya_mean_z_cutoff']))
 
 
-def test_round_heads_match_jax(polya_config):
-    """Six windows (tails plain, spiky, shifted, one DAC window) in one
-    8192-sample launch on both packages."""
+def six_windows(polya_config):
+    """Six windows (tails plain, spiky, shifted, one DAC window) of one
+    8192-sample launch: (u16 stream, meta [6, META_COLS], round
+    parameters)."""
     rng = np.random.RandomState(3)
     cutoff = (108.95 - 2 * 2.55, 108.95 + 2 * 2.55)
     wires, rows = [], []
@@ -74,13 +75,21 @@ def test_round_heads_match_jax(polya_config):
         rows.append((sum(len(w) for w in wires), len(q), 400, *rng_k, lo,
                      step))
         wires.append(q)
-    stream = np.concatenate(wires)
-    meta = np.array(rows, np.float32)
-    params = round_params(polya_config, max_peaks=511, max_spikes=8)
+    return (np.concatenate(wires), np.array(rows, np.float32),
+            round_params(polya_config, max_peaks=511, max_spikes=8))
+
+
+def widened(stream):
+    return torch.from_numpy(stream.view(np.int16)).to(torch.int32) & 0xFFFF
+
+
+def test_round_heads_match_jax(polya_config):
+    """Six windows (tails plain, spiky, shifted, one DAC window) in one
+    8192-sample launch on both packages."""
+    stream, meta, params = six_windows(polya_config)
 
     heads, spikes = tround.polya_round(
-        torch.from_numpy(stream.view(np.int16)).to(torch.int32) & 0xFFFF,
-        torch.from_numpy(meta), blen=8192, **params)
+        widened(stream), torch.from_numpy(meta), blen=8192, **params)
     jheads, jstream = jax.jit(functools.partial(
         jround.polya_round_core, blen=8192, use_pallas=False,
         interpret=False, **params))(jnp.asarray(stream), jnp.asarray(meta))
@@ -99,6 +108,78 @@ def test_round_heads_match_jax(polya_config):
             assert [s[0] for s in gs] == [s[0] for s in rs]
             for a, b in zip(gs, rs):
                 np.testing.assert_allclose(a, b, rtol=FLOAT_RTOL)
+
+
+def test_padded_round_leaves_real_rows_bit_equal(polya_config):
+    """The six windows padded as a captured round pads them: all-zero
+    meta rows up to a capacity of 8, in a wire of 8 x 8192 + 1 samples
+    whose tail past the windows holds stale samples. Every real row's
+    heads and spikes keep their bits."""
+    stream, meta, params = six_windows(polya_config)
+    heads, spikes = tround.polya_round(
+        widened(stream), torch.from_numpy(meta), blen=8192, **params)
+    buffer = np.random.RandomState(4).randint(
+        0, 1 << 16, 8 * 8192 + 1).astype(np.uint16)
+    buffer[:len(stream)] = stream
+    padded = tround.pad_rows(meta, 8)
+    assert padded.shape == (8, tround.META_COLS) and not padded[6:].any()
+    got = tround.real_rows(*tround.polya_round(
+        widened(buffer), torch.from_numpy(padded), blen=8192, **params), 6)
+    for g, ref in zip(got, (heads, spikes)):
+        assert g.shape == ref.shape
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      ref.numpy().view(np.int32))
+
+
+def test_row_capacity_is_a_bounded_power_of_two():
+    """8 rows for 1 to 8 windows, the next power of two above that, and
+    never past the launch cap of a bucket."""
+    for blen in polya_mod._BUCKETS:
+        cap = polya_mod.launch_rows(blen)
+        for rows in range(1, cap + 1):
+            capacity = polya_mod.row_capacity(rows, blen)
+            assert rows <= capacity <= cap
+            assert capacity == (8 if rows <= 8 else
+                                1 << (rows - 1).bit_length())
+
+
+def test_graph_key_differs_by_every_round_parameter(polya_config):
+    """A captured round is keyed by its card, bucket, row capacity and
+    every parameter baked into it: a change to any one of them gives
+    another key, the same parameters in another order the same key."""
+    analyzer = PolyaAnalyzer(polya_config, device='cpu')
+    params = dict(analyzer._round, max_peaks=511, max_spikes=128)
+    assert set(params) == set(round_params(polya_config, 511, 128))
+    key = tround.graph_key('cuda:0', 8192, 8, params)
+    assert key == tround.graph_key(
+        'cuda:0', 8192, 8, dict(reversed(list(params.items()))))
+    others = [tround.graph_key('cuda:1', 8192, 8, params),
+              tround.graph_key('cuda:0', 16384, 8, params),
+              tround.graph_key('cuda:0', 8192, 16, params)]
+    for name, value in params.items():
+        changed = dict(params, **{name: value * 2 + 1})
+        others.append(tround.graph_key('cuda:0', 8192, 8, changed))
+    assert len(others) == 3 + len(params)
+    assert key not in others and len(set(others)) == len(others)
+
+
+def test_capture_counts_move_to_replays():
+    """A capture's kernel counts are taken off the totals and added back
+    once a replay."""
+    from poreplex_torch import kernels
+    kernels.reset_launches()
+    kernels.count('polya_dp', 'dp_kernel')
+    before = kernels.counts()
+    kernels.count('detect_peaks', 'peaks_kernel')
+    kernels.count('polya_dp', 'dp_kernel')
+    taken = kernels.take_counts(before)
+    assert kernels.counts() == before
+    for _ in range(3):
+        kernels.add_counts(taken)
+    assert kernels.launches['detect_peaks'] == 3
+    assert kernels.launches['polya_dp'] == 4
+    assert kernels.instantiations == {'peaks_kernel': 3, 'dp_kernel': 4}
+    kernels.reset_launches()
 
 
 @pytest.mark.parametrize('k', [1, 7])
