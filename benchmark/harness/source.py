@@ -8,10 +8,16 @@ the listing: file k is listed once the session has opened the reads of
 the first k - LEAD batches, and once the window's seconds have passed the
 listing ends and the session finishes the batches in flight. The wait
 holds one of the session's monitor threads; the other runs PHASE A.
+
+In a run of several ranks every rank lists the same files and its session
+keeps the entries the rank owns (the port's CRC32 split); the source
+serves and paces on those alone, so the listing stays LEAD batches ahead
+of the rank's own session. With one rank every entry is owned.
 """
 
 import threading
 import time
+import zlib
 
 import numpy as np
 
@@ -76,21 +82,35 @@ READ_META = dict(pa_scale=PoolReader.pa_scale, offset=PoolReader.offset,
                  mean_qscore=simulate.MEAN_QSCORE)
 
 
+def owns(relpath, read_id, rank, ranks):
+    """Whether rank ``rank`` of ``ranks`` owns the entry: the CRC32 of file
+    name and read id, as the port's ``parallel/distributed.owns_entry``
+    splits a run's reads."""
+    if ranks <= 1:
+        return True
+    return zlib.crc32((relpath + '\0' + read_id).encode()) % ranks == rank
+
+
 class PacedSource:
 
     holds_files = False
 
-    def __init__(self, pool, seed, batch_size, seconds, lead=LEAD):
+    def __init__(self, pool, seed, batch_size, seconds, lead=LEAD, rank=0,
+                 ranks=1, on_listed=None):
         self.pool = pool
         self.seed = seed
         self.batch_size = batch_size
         self.seconds = seconds
         self.lead = lead
+        self.rank, self.ranks = rank, ranks
+        self.on_listed = on_listed    # called with k once file k is listed
         self.cond = threading.Condition()
-        self.opened = 0
+        self.owned = 0            # owned entries listed
+        self.opened = 0           # owned entries opened
         self.deadline = None
         self.ended = False
-        self.served = {}          # read id -> pool index
+        self.served = {}          # read id -> pool index, owned entries
+        self.index_of = {}        # read id -> pool index, every entry
         self.batches = []         # pool indices of each listed batch
         self._orders = {}
 
@@ -116,10 +136,23 @@ class PacedSource:
                 k += 1
         return names()
 
+    def file_entries(self, k):
+        """[(read id, pool index, owned)] of file k."""
+        relpath, n = self.filename(k), len(self.pool)
+        out = []
+        for g in range(k * self.batch_size, (k + 1) * self.batch_size):
+            npass, at = divmod(g, n)
+            index = int(self.order(npass)[at])
+            read_id = 'p{:04d}-r{:05d}'.format(npass, index)
+            out.append((read_id, index,
+                        owns(relpath, read_id, self.rank, self.ranks)))
+        return out
+
     def read_ids(self, relpath):
         k = int(relpath[5:11])
         with self.cond:
-            while self.opened < (k - self.lead) * self.batch_size:
+            # with one rank: until the first k - lead batches are opened
+            while self.owned - self.opened > self.lead * self.batch_size:
                 left = self.deadline - time.perf_counter()
                 if left <= 0:
                     break
@@ -127,17 +160,25 @@ class PacedSource:
             if time.perf_counter() >= self.deadline:
                 self.ended = True
                 return []
-        n = len(self.pool)
         entries, indices = [], []
-        for g in range(k * self.batch_size, (k + 1) * self.batch_size):
-            npass, at = divmod(g, n)
-            index = int(self.order(npass)[at])
-            read_id = 'p{:04d}-r{:05d}'.format(npass, index)
-            self.served[read_id] = index
+        for read_id, index, owned in self.file_entries(k):
+            self.index_of[read_id] = index
             entries.append((relpath, read_id))
-            indices.append(index)
+            if owned:
+                self.served[read_id] = index
+                indices.append(index)
+        with self.cond:
+            self.owned += len(indices)
         self.batches.append(indices)
+        if self.on_listed is not None:
+            self.on_listed(k)
         return entries
+
+    def served_through(self, last):
+        """{read id: pool index} of the owned entries of files 0 to
+        ``last``: what a rank that listed them was served."""
+        return {rid: index for k in range(last + 1)
+                for rid, index, owned in self.file_entries(k) if owned}
 
     def exists(self, filename):
         return True
@@ -145,12 +186,14 @@ class PacedSource:
     def opener(self):
         def open_read(filename, read_id):
             with self.cond:
-                self.opened += 1
-                # the listing waits for whole batches: waking it on every
-                # read would take the interpreter lock from PHASE A
-                if self.opened % self.batch_size == 0:
-                    self.cond.notify_all()
-            return PoolReader(self.pool[self.served[read_id]], read_id)
+                if read_id in self.served:
+                    self.opened += 1
+                    # the listing waits for whole batches: waking it on
+                    # every read would take the interpreter lock from
+                    # PHASE A
+                    if self.opened % self.batch_size == 0:
+                        self.cond.notify_all()
+            return PoolReader(self.pool[self.index_of[read_id]], read_id)
         return open_read
 
     def snapshot(self):
@@ -172,6 +215,6 @@ class FixedSource(PacedSource):
         entries = []
         for index in self.indices:
             read_id = 'w-r{:05d}'.format(index)
-            self.served[read_id] = index
+            self.served[read_id] = self.index_of[read_id] = index
             entries.append((relpath, read_id))
         return entries

@@ -232,9 +232,20 @@ def run_session(argv, source, grace=LATE_SECONDS):
 
 def run_cell(workload, seed, seconds, trace=0, device='cuda', wire='exact',
              pool_reads=None, batch_size=None, judged_reads=JUDGED_READS,
-             grace=LATE_SECONDS, t_start=T_START):
+             grace=LATE_SECONDS, t_start=T_START, ranks=None, margin=None):
     """One run of the cell; returns the result dict. ``device='cpu'`` and
-    the size overrides are for the CPU tests only."""
+    the size overrides are for the CPU tests only. A configuration with
+    ``ranks`` runs as that many rank processes (``harness/ranks.py``;
+    ``ranks`` and ``margin`` override its own for the CPU tests)."""
+    _, entry, _, _ = cell_entries(load_manifest(), workload)
+    if load_json(entry['file']).get('ranks', 1) > 1:
+        from benchmark.harness import ranks as rank_mode
+        return rank_mode.run_cell(workload, seed, seconds, trace, device,
+                                  wire, pool_reads, batch_size,
+                                  judged_reads, grace, t_start, ranks,
+                                  margin)
+    if ranks is not None or margin is not None:
+        raise ValueError('{} runs as one process'.format(workload))
     import torch
     from benchmark.harness import counts, outputs, traffic
     from benchmark.harness.source import FixedSource, PacedSource
@@ -364,23 +375,9 @@ def run_cell(workload, seed, seconds, trace=0, device='cuda', wire='exact',
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    n = numbers['judged']
-    checks = {
-        'judged_reads': {'value': n, 'limit': 1},
-        'missing_rows': {'value': numbers['missing'], 'limit': 0},
-        'rows_differ_share': {
-            'value': numbers['differ'] / n if n else 1.0,
-            'limit': outputs.ROWS_DIFFER_LIMIT},
-    }
-    if config['analyses']['polya']:
-        checks['dwell_gap_s'] = {'value': numbers['dwell_gap'],
-                                 'limit': params['dwell_gap_limit_s']}
-    # judged_reads is a least number, the others most numbers
-    correct = n >= 1 and all(c['value'] <= c['limit']
-                             for k, c in checks.items()
-                             if k != 'judged_reads')
-    result = {'correct': correct, 'attempted': attempted, 'failed': failed,
-              'metrics': metrics, 'device': result_device}
+    checks = output_checks(numbers, config, params)
+    result = {'correct': judge(checks), 'attempted': attempted,
+              'failed': failed, 'metrics': metrics, 'device': result_device}
     if breakdown is not None:
         result['breakdown'] = breakdown
     result['info'] = {
@@ -395,6 +392,32 @@ def run_cell(workload, seed, seconds, trace=0, device='cuda', wire='exact',
         'power_limit': card_power_limit() if device != 'cpu' else None}
     result['checks'] = checks
     return result
+
+
+def output_checks(numbers, config, params):
+    """{name: {'value', 'limit'}} of the numbers ``outputs.compare``
+    gave."""
+    from benchmark.harness import outputs
+    n = numbers['judged']
+    checks = {
+        'judged_reads': {'value': n, 'limit': 1},
+        'missing_rows': {'value': numbers['missing'], 'limit': 0},
+        'rows_differ_share': {
+            'value': numbers['differ'] / n if n else 1.0,
+            'limit': outputs.ROWS_DIFFER_LIMIT},
+    }
+    if config['analyses']['polya']:
+        checks['dwell_gap_s'] = {'value': numbers['dwell_gap'],
+                                 'limit': params['dwell_gap_limit_s']}
+    return checks
+
+
+def judge(checks):
+    """``correct``: judged_reads is a least number, the others most
+    numbers."""
+    return checks['judged_reads']['value'] >= 1 and all(
+        c['value'] <= c['limit'] for k, c in checks.items()
+        if k != 'judged_reads')
 
 
 def report(result):
@@ -416,7 +439,10 @@ def main(argv=None):
     os.environ.setdefault('TRITON_CACHE_DIR',
                           os.path.join(ROOT, 'build', 'triton'))
     manifest = load_manifest()
-    cell, _, _, _ = cell_entries(manifest, args.workload)
+    cell, entry, _, _ = cell_entries(manifest, args.workload)
+    if load_json(entry['file']).get('ranks', 1) > 1:
+        from benchmark.harness import ranks
+        return ranks.main(args, T_START)
     import torch
     if not torch.cuda.is_available():
         print('no CUDA card: the benchmark measures poreplex_torch on a '

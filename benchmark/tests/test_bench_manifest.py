@@ -48,8 +48,11 @@ def test_names_and_cells():
     for metric in m['per_layer']:
         assert metric['moves'] in e2e
         assert set(metric.get('workloads', cells)) <= cells
+    configs = {c['name']: c for c in m['configs']}
     for w in m['workloads']:
-        assert w['chips'] == 1
+        # a card a rank: more than one only for a configuration of ranks
+        assert w['chips'] == run.load_json(
+            configs[w['config']]['file']).get('ranks', 1)
         assert len(w['why']) <= 200
         _, _, e, p = run.cell_entries(m, w['name'])
         assert {x['name'] for x in e} == e2e and p
